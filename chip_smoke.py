@@ -5,26 +5,39 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles every CUDA kernel of the serving path from
-     `ray_tpu_torch/ops/csrc/` (one nvcc per source, in parallel);
+  2. build: compiles every CUDA kernel of the serving and training paths
+     from `ray_tpu_torch/ops/csrc/` (one nvcc per source, in parallel);
   3. check: each kernel against its plain PyTorch version on the card,
-     at the serving path's shapes and ragged ones, with stated
-     tolerances; a shape a kernel does not take must raise;
+     at the main paths' shapes and ragged ones, with stated tolerances;
+     the flash autograd Function against autograd through
+     `mha_reference`; a 2-layer model at the training width, its loss
+     and grads in bf16 on the card against f32 on the CPU; a shape a
+     kernel does not take must raise;
   4. time: each kernel, its plain version and one library call that
      computes the same function (a yardstick the port never calls),
      with CUDA events, beside the least time the card could take;
   5. serve: llama3-8b at full width and depth (random weights from a
      seed) through the port's EngineCore, five requests, one submitted
-     mid-flight; every kernel must have launched during this phase, and
-     one prompt's prefill logits must agree with Transformer.apply; then
-     torch.profiler splits an admission step and the decode steps after
-     it by kernel, and gives the decode step's device idle share.
+     mid-flight; every serving kernel must have launched during this
+     phase, and one prompt's prefill logits must agree with
+     Transformer.apply; then torch.profiler splits an admission step
+     and the decode steps after it by kernel, and gives the decode
+     step's device idle share;
+  6. train: the model of the repo's `bench.py` (~0.95 B params, bf16,
+     seq 2048, batch 2) at full width and depth through
+     `ray_tpu_torch.bench.train_step` (loss, backward, AdamW): 2 warm-up
+     and 20 timed steps on a fixed batch, finite and falling loss, the
+     launch counts of every kernel per step, one `remat=True` step, and
+     a torch.profiler split of one step with its device idle share.
 The last three lines are the card (`nvidia-smi`), the kernels as JSON,
 and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -34,12 +47,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch import bench
 from ray_tpu_torch.models import decode
 from ray_tpu_torch.models.config import llama3_8b
+from ray_tpu_torch.models.convert import init_for_serving
 from ray_tpu_torch.models.transformer import Transformer
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.attention import (flash_attention,
-                                         flash_attention_reference)
+from ray_tpu_torch.ops.attention import (_flash_bwd_cuda, _flash_bwd_launch,
+                                         flash_attention,
+                                         flash_attention_bwd_reference,
+                                         flash_attention_reference,
+                                         mha_reference)
 from ray_tpu_torch.ops.norms import rms_norm, rms_norm_reference
 from ray_tpu_torch.serve.llm.engine import FINISH_LENGTH, FINISH_STOP, \
     EngineCore
@@ -55,6 +73,8 @@ EPS = 1e-5                                # llama3-8b norm_eps
 D_MODEL, HEADS, KV_HEADS, HEAD_DIM = 4096, 32, 8, 128
 S_MAIN = 2048                             # prefill bucket timed
 DECODE_ROWS = 8                           # EngineCore max_batch
+TRAIN_B, TRAIN_S, TRAIN_HEADS = 2, 2048, 16   # bench.py's training shape
+TRAIN_STEPS, TRAIN_WARMUP = 20, 2
 # Tolerances, set from the arithmetic before any run:
 #  * RMSNorm bf16: both sides round the same f32 value (up to sum order
 #    and rsqrt rounding) to bf16, so they differ by at most one bf16 ulp,
@@ -67,12 +87,30 @@ DECODE_ROWS = 8                           # EngineCore max_batch
 #  * prefill logits vs Transformer.apply (bf16 through 32 layers): the
 #    two run different matmul shapes (padded bucket vs exact length), so
 #    every bf16 rounding in the residual stream may differ by an ulp.
+#  * flash dQ/dK/dV (bf16) against the plain backward: both round P and
+#    dS to bf16 from f32 values that differ only by sum order and
+#    __expf, so a rounding flips on a few entries at most, and both round
+#    the f32 sums to bf16: a difference of a bf16 ulp or two at the
+#    largest values, 2^-7 of max|ref|; the limit is 1e-2 of max|ref|.
+#  * the autograd Function (bf16 kernels) against autograd through
+#    mha_reference in f32 on the same values: O, P, dS and the grads
+#    are rounded to bf16 (2^-9 relative each) on the kernel side only;
+#    2e-2 of max|ref| per gradient.
+#  * 2-layer model, loss and grads on the card in bf16 against f32 on
+#    the CPU, same parameter values: every activation of a layer's
+#    forward and backward (about 20 tensors) is rounded to bf16 on the
+#    card, and the grads themselves are stored in bf16; 5e-2 of each
+#    grad's max|ref|, and 1e-2 absolute on a loss near log(32000).
 TOL = {
     "rms_bf16": dict(rtol=2 ** -7, atol=1e-6),
     "rms_f32": dict(rtol=1e-5, atol=1e-5),
     "flash_o": dict(rtol=1e-2, atol=1e-2),
     "flash_lse": dict(rtol=1e-4, atol=1e-3),
     "logits_rel_to_max": 0.05,
+    "flash_bwd_rel_to_max": 1e-2,
+    "autograd_rel_to_max": 2e-2,
+    "model_grad_rel_to_max": 5e-2,
+    "model_loss_abs": 1e-2,
 }
 
 
@@ -116,18 +154,27 @@ def compare(out, ref, tol, what) -> float:
 
 
 def check_rms(dev) -> float:
+    """x in bf16 and f32, w in f32 (llama3-8b serving) and bf16 (the bench
+    model trains with bf16 parameters)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
     for dtype, tol in ((torch.bfloat16, TOL["rms_bf16"]),
                        (torch.float32, TOL["rms_f32"])):
-        for rows in (DECODE_ROWS, S_MAIN, 1000):
-            x = torch.randn(rows, D_MODEL, generator=gen, device=dev)
+        for rows, d, wdt in ((DECODE_ROWS, D_MODEL, torch.float32),
+                             (S_MAIN, D_MODEL, torch.float32),
+                             (1000, D_MODEL, torch.float32),
+                             (TRAIN_B * TRAIN_S, 2048, torch.bfloat16)):
+            x = torch.randn(rows, d, generator=gen, device=dev)
             x = (3 * x).to(dtype)
-            w = 0.1 * torch.randn(D_MODEL, generator=gen, device=dev)
-            err = compare(rms_norm(x, w, EPS), rms_norm_reference(x, w, EPS),
-                          tol, f"rms_norm {dtype} rows={rows}")
-            log(f"check rms_norm {str(dtype):15s} ({rows}, {D_MODEL}): "
-                f"max_abs_err {err:.3e}")
+            w = (0.1 * torch.randn(d, generator=gen, device=dev)).to(wdt)
+            before = rms_norm.launches
+            y = rms_norm(x, w, EPS)
+            if rms_norm.launches != before + 1:
+                raise AssertionError(f"rms_norm w {wdt} did not launch")
+            err = compare(y, rms_norm_reference(x, w, EPS), tol,
+                          f"rms_norm {dtype} w {wdt} rows={rows}")
+            log(f"check rms_norm x {str(dtype):15s} w {str(wdt):15s} "
+                f"({rows}, {d}): max_abs_err {err:.3e}")
             worst = max(worst, err)
     return worst
 
@@ -156,10 +203,132 @@ def check_flash(dev) -> tuple:
     return worst_o, worst_lse
 
 
+def rel_err(got, ref, rel, what) -> tuple:
+    """(max|got - ref|, that over max|ref|), raising above `rel`."""
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if not err <= rel * scale:
+        raise AssertionError(f"{what}: max_abs_err {err:.4e} above "
+                             f"{rel} x max|ref| {scale:.4e}")
+    return err, err / scale
+
+
+# (b, h, kvh, s, d, causal): the training shape, the llama3-8b GQA shape,
+# ragged s 1000 (both masks), head_dim 64 (both masks)
+BWD_CASES = [(TRAIN_B, TRAIN_HEADS, TRAIN_HEADS, TRAIN_S, 128, True),
+             (1, HEADS, KV_HEADS, S_MAIN, 128, True),
+             (1, 8, 2, 1000, 128, True), (1, 8, 2, 1000, 128, False),
+             (2, 8, 2, 300, 64, True), (2, 8, 2, 300, 64, False)]
+
+
+def bwd_inputs(b, h, kvh, s, d, causal, dev, gen):
+    def r(heads):
+        return torch.randn(b, heads, s, d, generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+    q, k, v, do = r(h), r(kvh), r(kvh), r(h)
+    o, lse = flash_attention_reference(q, k, v, causal)
+    return q, k, v, o, lse, do
+
+
+def check_flash_bwd(dev) -> dict:
+    """Both backward kernels against the plain backward on the same
+    inputs (the plain forward's O and lse), dO as a strided view."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = {"dkdv": [0.0, 0.0], "dq": [0.0, 0.0]}
+    for b, h, kvh, s, d, causal in BWD_CASES:
+        q, k, v, o, lse, do = bwd_inputs(b, h, kvh, s, d, causal, dev, gen)
+        do = do.transpose(1, 2).contiguous().transpose(1, 2)  # as the model
+        before = (flash_attention.dkdv_launches, flash_attention.dq_launches)
+        got = _flash_bwd_cuda(q, k, v, o, lse, do, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        if (flash_attention.dkdv_launches, flash_attention.dq_launches) != \
+                (before[0] + 1, before[1] + 1):
+            raise AssertionError("backward kernels did not launch once each")
+        want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+        errs = [rel_err(g, w, TOL["flash_bwd_rel_to_max"],
+                        f"flash bwd {name} {(b, h, kvh, s, d)} {causal=}")
+                for name, g, w in zip(("dq", "dk", "dv"), got, want)]
+        log(f"check flash_bwd b={b} h={h}/{kvh} s={s} d={d} "
+            f"causal={causal!s:5s}: max_abs_err (/max|ref|) " + ", ".join(
+                f"{n} {a:.3e} ({r:.2e})"
+                for n, (a, r) in zip(("dq", "dk", "dv"), errs)))
+        for kind, pair in (("dq", errs[:1]), ("dkdv", errs[1:])):
+            for a, r in pair:
+                worst[kind] = [max(worst[kind][0], a), max(worst[kind][1], r)]
+        del q, k, v, o, lse, do, got, want
+    return worst
+
+
+def check_autograd(dev) -> float:
+    """Gradients through flash_attention (the Function: forward kernel,
+    then both backward kernels) against autograd through mha_reference
+    in f32 on the same values."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    for b, h, kvh, s, d in ((TRAIN_B, TRAIN_HEADS, TRAIN_HEADS, 512, 128),
+                            (1, 8, 2, 333, 64)):
+        q, k, v, _, _, g = bwd_inputs(b, h, kvh, s, d, True, dev, gen)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        refs = [t.float().requires_grad_() for t in (q, k, v)]
+        before = flash_attention.dq_launches
+        out = flash_attention(*ins, causal=True)
+        got = torch.autograd.grad(out, ins, g)
+        if flash_attention.dq_launches != before + 1:
+            raise AssertionError("the Function's backward did not launch")
+        want = torch.autograd.grad(mha_reference(*refs, causal=True), refs,
+                                   g.float())
+        errs = [rel_err(a, w, TOL["autograd_rel_to_max"],
+                        f"autograd d{n} {(b, h, kvh, s, d)}")
+                for n, a, w in zip("qkv", got, want)]
+        log(f"check flash autograd b={b} h={h}/{kvh} s={s} d={d}: "
+            f"max_abs_err/max|ref| " + " ".join(
+                f"d{n} {e[1]:.2e}" for n, e in zip("qkv", errs)))
+        worst = max(worst, *(e[1] for e in errs))
+    return worst
+
+
+def check_model_grads(dev) -> dict:
+    """A 2-layer model at the training width (the bench config, depth
+    cut to 2): loss and every grad on the card in bf16 against the CPU
+    in f32, with the same parameter values."""
+    cfg = dataclasses.replace(bench.bench_config(), n_layers=2)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model, model32 = Transformer(cfg), Transformer(cfg32)
+    params = model.init(7, device="cpu")               # bf16 leaves
+    cpu = bench.make_batch(cfg, 2, 512, "cpu", seed=8)
+
+    def each_leaf(fn):
+        return {k: ([{n: fn(t) for n, t in layer.items()} for layer in v]
+                    if k == "layers" else fn(v)) for k, v in params.items()}
+    p32, pdev = each_leaf(torch.Tensor.float), each_leaf(lambda t: t.to(dev))
+    grads = []
+    for m, p, batch in ((model, pdev, {"tokens": cpu["tokens"].to(dev)}),
+                        (model32, p32, cpu)):
+        ps = bench.leaves(p)
+        for t in ps:
+            t.requires_grad_(True)
+        loss = m.loss(p, batch)
+        grads.append((loss.item(), torch.autograd.grad(loss, ps)))
+    (loss, got), (loss32, want) = grads
+    if not (abs(loss - loss32) <= TOL["model_loss_abs"]):
+        raise AssertionError(f"2-layer loss {loss} on the card vs {loss32}")
+    worst = max(rel_err(g.cpu(), w, TOL["model_grad_rel_to_max"],
+                        f"2-layer grad #{i} {tuple(w.shape)}")[1]
+                for i, (g, w) in enumerate(zip(got, want)))
+    log(f"check 2-layer model (bench width, b=2, s=512): loss {loss:.5f} "
+        f"vs f32 CPU {loss32:.5f}; worst grad max_abs_err/max|ref| "
+        f"{worst:.3e} over {len(got)} leaves")
+    return {"loss": loss, "loss_f32_cpu": loss32,
+            "worst_grad_rel_err": worst}
+
+
 def check_refusals(dev) -> None:
     """A CUDA tensor of a shape a kernel does not take raises; it never
     runs the plain version instead."""
-    before = (rms_norm.launches, flash_attention.launches)
+    before = kernel_counts()
+    bf = torch.bfloat16
+    q = torch.ones(1, 2, 64, 64, device=dev, dtype=bf)
+    lse = torch.zeros(1, 2, 64, device=dev)
     cases = [
         ("rms_norm d=4100", lambda: rms_norm(
             torch.ones(4, 4100, device=dev, dtype=torch.bfloat16),
@@ -169,6 +338,19 @@ def check_refusals(dev) -> None:
                          dtype=torch.bfloat16),) * 3)),
         ("flash f32", lambda: flash_attention(
             *(torch.ones(1, 2, 8, 64, device=dev),) * 3)),
+        ("flash bwd f32 dO", lambda: _flash_bwd_cuda(
+            q, q, q, q, lse, q.float(), True, 0.125)),
+        ("flash bwd head_dim=96", lambda: _flash_bwd_cuda(
+            *(torch.ones(1, 2, 8, 96, device=dev, dtype=bf),) * 4,
+            torch.zeros(1, 2, 8, device=dev),
+            torch.ones(1, 2, 8, 96, device=dev, dtype=bf), True, 0.1)),
+        ("flash bwd lse (b, h, 8, sq)", lambda: _flash_bwd_cuda(
+            q, q, q, q, lse[:, :, None].expand(1, 2, 8, 64), q, True,
+            0.125)),
+        ("flash bwd dO unit-stride-free", lambda: _flash_bwd_cuda(
+            q, q, q, q, lse,
+            torch.ones(1, 2, 64, 128, device=dev, dtype=bf)[..., ::2],
+            True, 0.125)),
     ]
     for what, fn in cases:
         try:
@@ -177,7 +359,7 @@ def check_refusals(dev) -> None:
             log(f"check refusal {what}: raised {type(e).__name__}")
             continue
         raise AssertionError(f"{what}: the wrapper did not raise")
-    if (rms_norm.launches, flash_attention.launches) != before:
+    if kernel_counts() != before:
         raise AssertionError("a refused call counted a launch")
 
 
@@ -272,6 +454,56 @@ def time_flash(dev, peaks, s: int) -> dict:
     return out
 
 
+def time_flash_bwd(dev, peaks) -> dict:
+    """Each backward kernel at the training shape (b 2, 16 heads, s 2048,
+    head_dim 128, causal), with delta computed once. The plain version
+    computes dQ, dK and dV together, and so does the library yardstick,
+    the backward of F.scaled_dot_product_attention: both are timed once
+    and stand beside each kernel."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, h, s, d = TRAIN_B, TRAIN_HEADS, TRAIN_S, 128
+    q, k, v, o, lse, do = bwd_inputs(b, h, h, s, d, True, dev, gen)
+    delta = (do.float() * o.float()).sum(-1)
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    shared = {}
+    for key, fn, n in (
+            ("plain_", lambda: flash_attention_bwd_reference(
+                q, k, v, o, lse, do, True), 5),
+            ("library_", lambda: torch.autograd.grad(
+                sdpa, (qs, ks, vs), do, retain_graph=True), 10)):
+        shared[key + "ms"], shared[key + "call_ms"] = time_ms(fn, n)
+    pairs = b * h * s * (s + 1) / 2          # causal lower triangle
+    out = {}
+    for kind, products, writes in (("dkdv", 4, 2), ("dq", 3, 1)):
+        t = dict(zip(("ms", "call_ms"), time_ms(
+            lambda: _flash_bwd_launch(kind, q, k, v, do, lse, delta, grads,
+                                      True, d ** -0.5), 10)))
+        # reads q, k, v, dO (bf16) and lse, delta (f32); writes dK and dV,
+        # or dQ (bf16)
+        nbytes = (4 + writes) * b * h * s * d * 2 + 2 * b * h * s * 4
+        t["bound_ms"], t["bound_by"] = bound(nbytes, products * 2 * d * pairs,
+                                             peaks[1], peaks)
+        t.update(shared)
+        t["shape"] = (f"q/k/v/dO ({b}, {h}, {s}, {d}) bf16, causal; plain "
+                      f"and library compute dQ, dK, dV together")
+        out[kind] = t
+    return out
+
+
+def kernel_counts() -> dict:
+    return {"flash_fwd": flash_attention.launches,
+            "flash_dkdv": flash_attention.dkdv_launches,
+            "flash_dq": flash_attention.dq_launches,
+            "rms_norm": rms_norm.launches}
+
+
+def reset_counts() -> None:
+    rms_norm.launches = flash_attention.launches = 0
+    flash_attention.dkdv_launches = flash_attention.dq_launches = 0
+
+
 class TimedCore(EngineCore):
     """EngineCore that records host wall time of each prefill and decode
     step; both end in a device-to-host copy, so the time covers the
@@ -294,17 +526,37 @@ class TimedCore(EngineCore):
         return out
 
 
+# kernel classes of a training step, by name: first match wins
+KERNEL_CLASSES = (("flash", ("flash_",)),
+                  ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
+                  ("adamw", ("multi_tensor_apply",)),
+                  ("copy_cast", ("copy",)),
+                  ("other", ("",)))
+
+
 def kernel_table(prof, top: int = 10) -> tuple:
-    """(device ms summed over kernels, the top kernels by device time)."""
+    """(device ms summed over kernels, the top kernels by device time,
+    device ms by KERNEL_CLASSES)."""
     from torch.autograd import DeviceType
+    # a user annotation (e.g. "Optimizer.step#AdamW.step") also shows on
+    # the device as a range over its kernels: counting it would count
+    # those kernels twice. (A kernel's own name may hold "#" too, as in
+    # "{lambda(int)#1}", so only the annotation's plain form is dropped.)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not re.fullmatch(r"[\w.]+#[\w.]+", e.key)]
     total = sum(ms for _, ms, _ in rows)
     rows.sort(key=lambda r: -r[1])
+    classes = dict.fromkeys((c for c, _ in KERNEL_CLASSES), 0.0)
+    for name, ms, _ in rows:
+        cls = next(c for c, keys in KERNEL_CLASSES
+                   if any(k in name for k in keys))
+        classes[cls] += ms
     return total, [{"kernel": name[:70], "ms": ms, "calls": n,
                     "share": ms / total if total else None}
-                   for name, ms, n in rows[:top]]
+                   for name, ms, n in rows[:top]], classes
 
 
 def profile_steps(core, prompts, decode_p50: float) -> dict:
@@ -325,7 +577,7 @@ def profile_steps(core, prompts, decode_p50: float) -> dict:
                 core.step()
                 steps += 1
             torch.cuda.synchronize()
-        busy, top = kernel_table(prof)
+        busy, top, _ = kernel_table(prof)
         out[phase] = {"steps": steps, "device_ms": busy, "top": top}
     if out["decode"]["device_ms"] == 0:
         out["decode"]["idle_share"] = "not measured (no device events)"
@@ -338,8 +590,9 @@ def profile_steps(core, prompts, decode_p50: float) -> dict:
 def serve(dev) -> dict:
     cfg = llama3_8b()
     model = Transformer(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(seed=0, device=dev)
+    params = init_for_serving(model, seed=0, device=dev)
     torch.cuda.synchronize()
     log(f"serve: llama3-8b init on the card {time.perf_counter() - t0:.1f} s"
         f", {cfg.num_params() / 1e9:.2f} B params, "
@@ -362,7 +615,7 @@ def serve(dev) -> dict:
 
     done, tokens = {}, {}
     torch.cuda.synchronize()
-    rms_norm.launches = flash_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     for rid in lens:
         core.submit(prompts[rid], max_tokens=new_tokens[rid], rid=rid)
@@ -381,8 +634,7 @@ def serve(dev) -> dict:
             raise RuntimeError("engine did not go idle in 200 steps")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rms_norm": rms_norm.launches,
-                "flash_fwd": flash_attention.launches}
+    launches = kernel_counts()
 
     if set(done) != set(prompts):
         raise AssertionError(f"finished {sorted(done)}, "
@@ -401,6 +653,7 @@ def serve(dev) -> dict:
     prefill_ms, decode_ms = list(core.prefill_ms), list(core.decode_ms)
     n_prefill, n_decode = len(prefill_ms), len(decode_ms)
     want = {"flash_fwd": cfg.n_layers * n_prefill,
+            "flash_dkdv": 0, "flash_dq": 0,
             "rms_norm": (2 * cfg.n_layers + 1) * (n_prefill + n_decode)}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
@@ -443,6 +696,81 @@ def serve(dev) -> dict:
     }
 
 
+def step_profile(model, params, opt, batch, step_p50: float) -> dict:
+    """One training step under torch.profiler: kernel time by name, and
+    the device idle share against the unprofiled step p50."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bench.train_step(model, params, opt, batch)
+        torch.cuda.synchronize()
+    busy, top, classes = kernel_table(prof, top=12)
+    idle = ("not measured (no device events)" if busy == 0
+            else max(0.0, 1 - busy / step_p50))
+    return {"device_ms": busy, "idle_share": idle, "by_class_ms": classes,
+            "top": top}
+
+
+def train(dev, peaks) -> dict:
+    """The bench.py model at full width and depth: 2 warm-up and 20 timed
+    steps of loss, backward and AdamW on one fixed batch."""
+    cfg = bench.bench_config()
+    model = Transformer(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, device=dev)
+    opt = bench.make_optimizer(params)
+    batch = bench.make_batch(cfg, TRAIN_B, TRAIN_S, dev)
+    losses = [bench.train_step(model, params, opt, batch).item()
+              for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    reset_counts()
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(bench.train_step(model, params, opt, batch).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = kernel_counts()
+    per_step = {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
+                "flash_dq": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1}
+    if launches != {k: n * TRAIN_STEPS for k, n in per_step.items()}:
+        raise AssertionError(f"train launches {launches} over "
+                             f"{TRAIN_STEPS} steps, expected {per_step} "
+                             f"per step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    p50 = statistics.median(step_ms)
+    tokens = TRAIN_B * TRAIN_S
+    tok_per_s = tokens * TRAIN_STEPS / (sum(step_ms) / 1e3)
+    mfu = tok_per_s * cfg.flops_per_token() / bench.detect_peak(dev)
+    profile = step_profile(model, params, opt, batch, p50)
+
+    # remat: every layer's forward, flash kernel included, runs again in
+    # the backward
+    reset_counts()
+    remat = Transformer(dataclasses.replace(cfg, remat=True))
+    remat_loss = bench.train_step(remat, params, opt, batch).item()
+    remat_counts = kernel_counts()
+    if (remat_counts["flash_fwd"] != 2 * cfg.n_layers
+            or remat_counts["flash_dkdv"] != cfg.n_layers
+            or not np.isfinite(remat_loss)):
+        raise AssertionError(f"remat step: launches {remat_counts}, loss "
+                             f"{remat_loss}")
+    return {
+        "params": cfg.num_params(), "batch": TRAIN_B, "seq": TRAIN_S,
+        "steps": TRAIN_STEPS, "losses": losses,
+        "step_ms_p50": p50, "step_ms": [round(t, 3) for t in step_ms],
+        "tokens_per_s": tok_per_s, "mfu": mfu,
+        "flops_per_token": cfg.flops_per_token(),
+        "launches": launches, "launches_per_step": per_step,
+        "peak_mem_gib": peak_gib, "profile": profile,
+        "remat_step": {"loss": remat_loss, "launches": remat_counts},
+    }
+
+
 def main() -> None:
     smi, peaks = card()
     dev = torch.device("cuda", 0)
@@ -452,38 +780,65 @@ def main() -> None:
 
     rms_err = check_rms(dev)
     flash_err, lse_err = check_flash(dev)
+    bwd_err = check_flash_bwd(dev)
+    autograd_err = check_autograd(dev)
+    model_check = check_model_grads(dev)
     check_refusals(dev)
 
     rms_pre = time_rms(dev, peaks, S_MAIN)
     rms_dec = time_rms(dev, peaks, DECODE_ROWS)
     flash = time_flash(dev, peaks, S_MAIN)
     flash_4k = time_flash(dev, peaks, 4096)
+    bwd = time_flash_bwd(dev, peaks)
     for what, t in (("rms_norm prefill", rms_pre),
                     ("rms_norm decode", rms_dec),
                     ("flash_fwd s=2048", flash),
-                    ("flash_fwd s=4096", flash_4k)):
+                    ("flash_fwd s=4096", flash_4k),
+                    ("flash_dkdv train", bwd["dkdv"]),
+                    ("flash_dq train", bwd["dq"])):
         log(f"time {what}: " + json.dumps(t))
+    gc.collect()
     torch.cuda.empty_cache()
 
     served = serve(dev)
     log("serve: " + json.dumps(served))
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train(dev, peaks)
+    log("train: " + json.dumps(trained))
+    for name in ("flash_fwd", "flash_dkdv", "flash_dq", "rms_norm"):
+        if served["launches"][name] + trained["launches"][name] == 0:
+            raise AssertionError(f"{name} never launched on a main path")
 
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "ray_tpu/ops/attention.py:69",
          "launches": served["launches"]["flash_fwd"],
+         "launches_train": trained["launches"]["flash_fwd"],
          "max_abs_err": flash_err, "lse_max_abs_err": lse_err,
          "tolerance": {"o": TOL["flash_o"], "lse": TOL["flash_lse"]},
          **flash, "kernel_ms": flash["ms"], "s4096": flash_4k},
+        *({"name": f"flash_{kind}", "route": "cuda",
+           "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+           "replaces": f"ray_tpu/ops/attention.py:{line}",
+           "launches": trained["launches"][f"flash_{kind}"],
+           "max_abs_err": bwd_err[kind][0],
+           "max_err_rel_to_max": bwd_err[kind][1],
+           "tolerance": {"rel_to_max": TOL["flash_bwd_rel_to_max"]},
+           "autograd_rel_err": autograd_err,
+           **bwd[kind], "kernel_ms": bwd[kind]["ms"]}
+          for kind, line in (("dkdv", 177), ("dq", 244))),
         {"name": "rms_norm", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/rms_norm.cu",
          "replaces": "ray_tpu/ops/norms.py:34",
          "launches": served["launches"]["rms_norm"],
+         "launches_train": trained["launches"]["rms_norm"],
          "max_abs_err": rms_err,
          "tolerance": {"bf16": TOL["rms_bf16"], "f32": TOL["rms_f32"]},
          **rms_pre, "kernel_ms": rms_pre["ms"], "decode": rms_dec},
     ]
+    log("check model: " + json.dumps(model_check))
     print(smi)                  # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 The JAX package `ray_tpu` stays the reference; this package grows beside
 it, one slice at a time, and imports nothing of it (nor JAX). The first
 slice is the serving path: the Llama-family decoder, its paged
-prefill/decode forwards and the continuous-batching `EngineCore`, with
-the flash-attention forward and the RMSNorm forward as CUDA kernels
-written for `sm_90a` (`ops/csrc/`).
+prefill/decode forwards and the continuous-batching `EngineCore`. The
+second is the training path: `Transformer.loss`, its backward and an
+AdamW step (`ray_tpu_torch.bench`). Their kernels are written by hand
+in CUDA C++ for `sm_90a` (`ops/csrc/`): the flash-attention forward, its
+dK/dV and dQ backward, and the RMSNorm forward.
 
 Entry points run on the card unless the caller passes `device="cpu"`;
 on the CPU every kernel wrapper runs its plain PyTorch version, which is

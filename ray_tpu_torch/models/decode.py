@@ -66,20 +66,26 @@ def cache_page_bytes(config, page_size: int, tp_shards: int = 1,
             * config.head_dim * itemsize)
 
 
+def _w(config, layer: Params, name: str) -> torch.Tensor:
+    """A matmul weight in the activation dtype: free for parameters cast
+    once by `convert.cast_for_serving`, a cast at use otherwise."""
+    return layer[name].to(config.activation_dtype)
+
+
 def _qkv(config, layer: Params, h):
     b, s, _ = h.shape
     hd = config.head_dim
-    q = (h @ layer["wq"]).view(b, s, config.n_heads, hd)
-    k = (h @ layer["wk"]).view(b, s, config.kv_heads, hd)
-    v = (h @ layer["wv"]).view(b, s, config.kv_heads, hd)
+    q = (h @ _w(config, layer, "wq")).view(b, s, config.n_heads, hd)
+    k = (h @ _w(config, layer, "wk")).view(b, s, config.kv_heads, hd)
+    v = (h @ _w(config, layer, "wv")).view(b, s, config.kv_heads, hd)
     return q, k, v
 
 
 def _mlp(config, layer: Params, x):
     h = rms_norm(x, layer["mlp_norm"], config.norm_eps)
-    gate = F.silu(h @ layer["gate"])
-    up = h @ layer["up"]
-    return x + (gate * up) @ layer["down"]
+    gate = F.silu(h @ _w(config, layer, "gate"))
+    up = h @ _w(config, layer, "up")
+    return x + (gate * up) @ _w(config, layer, "down")
 
 
 def prefill(model: Transformer, params: Params, tokens: torch.Tensor,
@@ -119,7 +125,7 @@ def prefill(model: Transformer, params: Params, tokens: torch.Tensor,
                                block_q=c.attn_block_q,
                                block_k=c.attn_block_k)
         attn = attn.transpose(1, 2).reshape(1, s, c.n_heads * c.head_dim)
-        x = x + attn @ layer["wo"]
+        x = x + attn @ _w(c, layer, "wo")
         x = _mlp(c, layer, x)
         ck[i].index_put_((page_ids, slots), k[0, :true_len].to(ck.dtype))
         cv[i].index_put_((page_ids, slots), v[0, :true_len].to(cv.dtype))
@@ -192,7 +198,7 @@ def decode_step(model: Transformer, params: Params, cache: KVCache,
         out = torch.einsum("bkgs,bskd->bkgd", probs,
                            vals.to(torch.float32)).to(ad)
         out = out.reshape(B, 1, c.n_heads * hd)
-        x = x + out @ layer["wo"]
+        x = x + out @ _w(c, layer, "wo")
         x = _mlp(c, layer, x)
 
     x = rms_norm(x, params["final_norm"], c.norm_eps)

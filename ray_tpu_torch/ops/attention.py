@@ -1,11 +1,15 @@
-"""Flash attention forward: a CUDA kernel for the card, the plain version
-for the CPU.
+"""Flash attention, forward and backward: CUDA kernels for the card, the
+plain versions for the CPU.
 
-Port of the forward half of `ray_tpu/ops/attention.py`. Layout
-(batch, heads, seq, head_dim); K/V may have fewer heads (GQA, kv heads
-divide q heads) and the kernel maps q head h to kv head h // group
-without materialising a repeat. The backward kernels (dK/dV and dQ)
-belong to the training slice: until then the CUDA path refuses autograd.
+Port of `ray_tpu/ops/attention.py`. Layout (batch, heads, seq, head_dim);
+K/V may have fewer heads (GQA, kv heads divide q heads) and the kernels
+map q head h to kv head h // group without materialising a repeat.
+`flash_attention` runs through one `torch.autograd.Function` on both
+devices: its forward saves q, k, v, O and the row log-sum-exp, and its
+backward is the dK/dV and dQ kernels (`csrc/flash_bwd.cu`) on the card,
+`flash_attention_bwd_reference` on the CPU. The lse's cotangent is
+dropped, as `_flash_bwd_rule` drops it: the lse is a statistic, not a
+loss term.
 """
 from __future__ import annotations
 
@@ -78,16 +82,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     del block_q, block_k
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if on_cuda(q):
-        out, lse = _flash_fwd_cuda(q, k, v, causal, sm_scale)
-    elif return_lse:
-        out, lse = flash_attention_reference(q, k, v, causal, sm_scale)
-    else:
-        out = mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    out, lse = _Flash.apply(q, k, v, bool(causal), float(sm_scale))
     return (out, lse) if return_lse else out
 
 
+# Launch counts of the three kernels: the forward, and the backward's
+# dK/dV and dQ kernels.
 flash_attention.launches = 0
+flash_attention.dkdv_launches = 0
+flash_attention.dq_launches = 0
+
+
+class _Flash(torch.autograd.Function):
+    """(out, lse) with the flash backward; lse's cotangent is dropped."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        if on_cuda(q):
+            out, lse = _flash_fwd_cuda(q, k, v, causal, sm_scale)
+        else:
+            out, lse = flash_attention_reference(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if on_cuda(q):
+            if not _kernel_layout_ok(do):
+                do = do.contiguous()     # e.g. the expanded grad of a sum
+            dq, dk, dv = _flash_bwd_cuda(q, k, v, out, lse, do, ctx.causal,
+                                         ctx.sm_scale)
+        else:
+            dq, dk, dv = flash_attention_bwd_reference(
+                q, k, v, out, lse, do, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_reference(q, k, v, causal: bool = True,
@@ -99,6 +130,84 @@ def flash_attention_reference(q, k, v, causal: bool = True,
     out = mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
     lse = torch.logsumexp(_masked_scores(q, k, causal, sm_scale), dim=-1)
     return out, lse
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = True,
+                                  sm_scale: Optional[float] = None):
+    """Plain version of both backward kernels: (dq, dk, dv).
+
+    Dense, in f32, from the saved O and lse: P = exp(S * scale - lse)
+    with masked entries set to 0 after the exp, delta = rowsum(dO * O),
+    dS = P (dP - delta) scale. P and dS are rounded to the inputs' dtype
+    before their products, as the kernels (and the JAX kernels) round
+    them; under GQA the q heads of a group sum into their kv head in f32.
+    Each gradient comes back in its input's dtype.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    f32 = torch.float32
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    group = h // kvh
+    kf, vf = k.to(f32), v.to(f32)
+    if group != 1:
+        kf = kf.repeat_interleave(group, dim=1)
+        vf = vf.repeat_interleave(group, dim=1)
+    qf, dof = q.to(f32), do.to(f32)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        valid = (torch.arange(sq, device=q.device)[:, None]
+                 >= torch.arange(sk, device=q.device)[None, :])
+        p = torch.where(valid, p, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).to(f32), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (dof * o.to(f32)).sum(-1)
+    ds = p * (dp - delta[..., None]) * sm_scale
+    ds = ds.to(q.dtype).to(f32)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    if group != 1:
+        dk = dk.reshape(b, kvh, group, sk, d).sum(2)
+        dv = dv.reshape(b, kvh, group, sk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_layout_ok(t: torch.Tensor) -> bool:
+    """16-byte vector loads: unit stride along d, 8-element multiples
+    elsewhere, 16-byte aligned base."""
+    return (t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _check_kernel_inputs(what: str, q, k, v, **more) -> None:
+    """The checks every flash kernel wrapper makes; raises on what the
+    kernels do not take."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    tensors = {"q": q, "k": k, "v": v, **more}
+    if any(t.dtype != torch.bfloat16 for t in tensors.values()):
+        raise TypeError(f"{what} takes bf16 " + "/".join(tensors) + ", got "
+                        + "/".join(str(t.dtype) for t in tensors.values()))
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{what} takes head_dim in {_HEAD_DIMS}, got {d}")
+    if (k.shape != (b, kvh, sk, d) or v.shape != k.shape or h % kvh):
+        raise ValueError(f"{what}: q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} do not match (kv heads must "
+                         f"divide q heads)")
+    if any(t.device != q.device for t in tensors.values()):
+        raise ValueError(f"{what}: inputs on different devices")
+    if b * h > 65535 or max(sq, sk) >= 2 ** 31:
+        raise ValueError(f"{what} grid too large: b*h={b * h}, sq={sq}, "
+                         f"sk={sk}")
+    for name, t in tensors.items():
+        if t.shape[-1] != d:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} has another "
+                             f"head_dim")
+        if not _kernel_layout_ok(t):
+            raise ValueError(f"{what}: {name} strides {t.stride()} are not "
+                             f"16-byte aligned with unit stride along "
+                             f"head_dim")
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,33 +224,7 @@ def _kernel():
 def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"flash kernel takes bf16 q/k/v, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {_HEAD_DIMS}, "
-                         f"got {d}")
-    if (k.shape != (b, kvh, sk, d) or v.shape != k.shape or h % kvh):
-        raise ValueError(f"flash kernel: q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} do not "
-                         f"match (kv heads must divide q heads)")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v on different devices")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention has no backward kernel yet (training slice)")
-    if b * h > 65535 or max(sq, sk) >= 2 ** 31:
-        raise ValueError(f"flash kernel grid too large: b*h={b * h}, "
-                         f"sq={sq}, sk={sk}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        # 16-byte vector loads: unit stride along d, 8-element multiples
-        # elsewhere, 16-byte aligned base.
-        if (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
-                or t.data_ptr() % 16):
-            raise ValueError(f"flash kernel: {name} strides {t.stride()} "
-                             f"are not 16-byte aligned with unit stride "
-                             f"along head_dim")
+    _check_kernel_inputs("flash kernel", q, k, v)
     # O is written as (b, s, h, d) memory so the caller's transpose back
     # to (b, s, h*d) is a free view.
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
@@ -159,3 +242,81 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out, lse
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernels():
+    lib = _build.load("flash_bwd")
+    common = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                                   ctypes.c_float, ctypes.c_int,
+                                   ctypes.c_void_p]
+    dkdv, dq = lib.rtt_flash_bwd_dkdv, lib.rtt_flash_bwd_dq
+    dkdv.argtypes = [ctypes.c_void_p] * 8 + common
+    dq.argtypes = [ctypes.c_void_p] * 7 + common
+    dkdv.restype = dq.restype = ctypes.c_int
+    return lib, dkdv, dq
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+    """Launch the dK/dV kernel, then the dQ kernel: (dq, dk, dv) in bf16.
+
+    q/k/v/o/dO may be strided views (unit stride along head_dim); lse is
+    the forward's (b, h, sq) f32. delta = rowsum(dO * O) is computed
+    here in plain torch, as the JAX launcher computes it outside its
+    kernels. The gradients are written as (b, s, heads, d) memory, so the
+    transposes back to the projections' layout are free views.
+    """
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    _check_kernel_inputs("flash backward kernel", q, k, v, o=o, do=do)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash backward kernel: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, sq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash backward kernel takes a contiguous f32 lse "
+                         f"of shape {(b, h, sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
+
+    def grad(heads, s):
+        return torch.empty((b, s, heads, d), dtype=q.dtype,
+                           device=q.device).transpose(1, 2)
+    dq, dk, dv = grad(h, sq), grad(kvh, sk), grad(kvh, sk)
+    if sq == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    _flash_bwd_launch("dkdv", q, k, v, do, lse, delta, (dq, dk, dv), causal,
+                      sm_scale)
+    _flash_bwd_launch("dq", q, k, v, do, lse, delta, (dq, dk, dv), causal,
+                      sm_scale)
+    return dq, dk, dv
+
+
+def _flash_bwd_launch(kind: str, q, k, v, do, lse, delta, grads,
+                      causal: bool, sm_scale: float) -> None:
+    """Launch one backward kernel ("dkdv" or "dq") into `grads` = (dq, dk,
+    dv) on the current stream and count it. `_flash_bwd_cuda` has made
+    the checks; the kernels' timing calls this directly, with delta
+    computed once."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    strides = (ctypes.c_longlong * 21)(*[
+        s for t in (q, k, v, do, *grads) for s in t.stride()[:3]])
+    lib, dkdv_fn, dq_fn = _bwd_kernels()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    if kind == "dkdv":
+        args += (grads[1].data_ptr(), grads[2].data_ptr())
+    else:
+        args += (grads[0].data_ptr(),)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = dkdv_fn if kind == "dkdv" else dq_fn
+        err = fn(*args, b, h, kvh, sq, sk, d, strides, float(sm_scale),
+                 int(causal), stream)
+    _build.check(lib, err, f"flash_attention {kind}")
+    if kind == "dkdv":
+        flash_attention.dkdv_launches += 1
+    else:
+        flash_attention.dq_launches += 1

@@ -3,7 +3,9 @@
 //
 // Replaces: ray_tpu/ops/norms.py, _rms_kernel (launched by
 // _rms_fwd_pallas), which normalises 256-row blocks in VMEM and leaves
-// ragged row counts to the XLA reference. This kernel takes any row count.
+// ragged row counts to the XLA reference. This kernel takes any row count,
+// and a weight in bf16 or f32 that it reads in f32, as the JAX kernel casts
+// `w_ref[:]` to f32 whatever its dtype.
 //
 // Bound on this card: bytes. Each element is read once and written once
 // with four f32 operations in between, far below the ~295 operations per
@@ -67,9 +69,36 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[0];
 }
 
-template <typename T>
+// The N weights starting at w, in f32; N is 4 or 8 (one 16-byte vector
+// of x), so an f32 weight is one or two float4 loads and a bf16 weight one
+// 8- or 16-byte load.
+template <int N>
+__device__ __forceinline__ void load_weights(const float* w, float* out) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float4 f = reinterpret_cast<const float4*>(w)[j];
+    out[4 * j + 0] = f.x;
+    out[4 * j + 1] = f.y;
+    out[4 * j + 2] = f.z;
+    out[4 * j + 3] = f.w;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_weights(const __nv_bfloat16* w,
+                                             float* out) {
+  __align__(16) __nv_bfloat16 buf[N];
+  if constexpr (N == 8) {
+    *reinterpret_cast<uint4*>(buf) = *reinterpret_cast<const uint4*>(w);
+  } else {
+    *reinterpret_cast<uint2*>(buf) = *reinterpret_cast<const uint2*>(w);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = __bfloat162float(buf[j]);
+}
+
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
-    rms_norm_kernel(const T* __restrict__ x, const float* __restrict__ w,
+    rms_norm_kernel(const T* __restrict__ x, const W* __restrict__ w,
                     T* __restrict__ y, int d, float eps) {
   constexpr int kElems = 16 / sizeof(T);  // elements per 16-byte vector
   const int nvec = d / kElems;
@@ -100,16 +129,8 @@ __global__ void __launch_bounds__(kThreads)
     const int vi = threadIdx.x + i * kThreads;
     if (vi < nvec) {
       const T* e = reinterpret_cast<const T*>(&buf[i]);
-      const float4* wv = reinterpret_cast<const float4*>(w + vi * kElems);
       float ws[kElems];
-#pragma unroll
-      for (int j = 0; j < kElems / 4; ++j) {
-        const float4 f = wv[j];
-        ws[4 * j + 0] = f.x;
-        ws[4 * j + 1] = f.y;
-        ws[4 * j + 2] = f.z;
-        ws[4 * j + 3] = f.w;
-      }
+      load_weights<kElems>(w + vi * kElems, ws);
       uint4 out;
       T* o = reinterpret_cast<T*>(&out);
 #pragma unroll
@@ -120,31 +141,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-// dtype: 0 = bf16, 1 = f32. The wrapper guarantees d % 8 == 0,
-// d / (16 / sizeof(T)) <= kThreads * kMaxVecs, 16-byte aligned rows.
-extern "C" int rtt_rms_norm(const void* x, const void* w, void* y,
-                            long long rows, int d, float eps, int dtype,
-                            void* stream) {
-  if (rows <= 0) return 0;
-  if (rows > 0x7fffffffLL || d <= 0 || d % 8) return cudaErrorInvalidValue;
+template <typename T>
+int launch(const void* x, const void* w, void* y, long long rows, int d,
+           float eps, int w_dtype, cudaStream_t s) {
+  if (d / (16 / static_cast<int>(sizeof(T))) > kThreads * kMaxVecs)
+    return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(rows));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (d / 8 > kThreads * kMaxVecs) return cudaErrorInvalidValue;
-    rms_norm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-        static_cast<__nv_bfloat16*>(y), d, eps);
-  } else if (dtype == 1) {
-    if (d / 4 > kThreads * kMaxVecs) return cudaErrorInvalidValue;
-    rms_norm_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(y), d, eps);
+  if (w_dtype == 0) {
+    rms_norm_kernel<T, __nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(w),
+        static_cast<T*>(y), d, eps);
+  } else if (w_dtype == 1) {
+    rms_norm_kernel<T, float><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(w),
+        static_cast<T*>(y), d, eps);
   } else {
     return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype and w_dtype: 0 = bf16, 1 = f32. The wrapper guarantees d % 8 == 0,
+// d / (16 / sizeof(T)) <= kThreads * kMaxVecs, 16-byte aligned rows and w.
+extern "C" int rtt_rms_norm(const void* x, const void* w, void* y,
+                            long long rows, int d, float eps, int dtype,
+                            int w_dtype, void* stream) {
+  if (rows <= 0) return 0;
+  if (rows > 0x7fffffffLL || d <= 0 || d % 8) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<__nv_bfloat16>(x, w, y, rows, d, eps, w_dtype, s);
+  if (dtype == 1) return launch<float>(x, w, y, rows, d, eps, w_dtype, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* rtt_error_string(int err) {

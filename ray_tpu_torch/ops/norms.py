@@ -1,10 +1,14 @@
-"""RMSNorm forward: a CUDA kernel for the card, the plain version for the CPU.
+"""RMSNorm (a CUDA kernel for the card, the plain version for the CPU) and
+LayerNorm (plain torch).
 
 Port of `ray_tpu/ops/norms.py`. `y = x * rsqrt(mean(x^2) + eps) * (1 + w)`
 in f32, output in x's dtype; the `(1 + w)` convention makes a zero-init
-scale the identity. The kernel (`csrc/rms_norm.cu`) takes any row count:
-the JAX wrapper's fall back to the reference for a ragged row count
-(`rows % 256`) has no counterpart here.
+scale the identity. The kernel (`csrc/rms_norm.cu`) takes any row count
+and a weight in bf16 or f32, read in f32 as the JAX kernel casts it: the
+JAX wrapper's fall back to the reference for a ragged row count
+(`rows % 256`) has no counterpart here. The backward is not a kernel in
+the JAX package (`_rms_bwd_rule` differentiates the reference on the
+saved x and w), and it is not one here either.
 """
 from __future__ import annotations
 
@@ -31,17 +35,48 @@ def rms_norm_reference(x: torch.Tensor, w: torch.Tensor,
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """Normalise the last axis of x (any leading shape).
+    """Normalise the last axis of x (any leading shape); differentiable.
 
     A CUDA tensor goes through the kernel, which raises on what it does
     not take; a CPU tensor through `rms_norm_reference`.
     """
-    if not on_cuda(x):
-        return rms_norm_reference(x, w, eps)
-    return _rms_norm_cuda(x, w, eps)
+    return _RMSNorm.apply(x, w, float(eps))
 
 
 rms_norm.launches = 0
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps: float):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        if not on_cuda(x):
+            return rms_norm_reference(x, w, eps)
+        return _rms_norm_cuda(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            wd = w.detach().requires_grad_(ctx.needs_input_grad[1])
+            y = rms_norm_reference(xd, wd, ctx.eps)
+            wanted = [t for t in (xd, wd) if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (next(grads) if xd.requires_grad else None,
+                next(grads) if wd.requires_grad else None, None)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """`(x - mean) * rsqrt(var + eps) * w + b` in f32, in x's dtype."""
+    dtype = x.dtype
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,7 +85,7 @@ def _kernel():
     fn = lib.rtt_rms_norm
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -60,14 +95,11 @@ def _rms_norm_cuda(x: torch.Tensor, w: torch.Tensor,
     d = x.shape[-1]
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"rms_norm kernel takes bf16 or f32 x, got {x.dtype}")
-    if w.dtype != torch.float32 or w.shape != (d,):
-        raise TypeError(f"rms_norm kernel takes an f32 weight of shape "
-                        f"({d},), got {w.dtype} {tuple(w.shape)}")
+    if w.dtype not in _DTYPE_CODES or w.shape != (d,):
+        raise TypeError(f"rms_norm kernel takes a bf16 or f32 weight of "
+                        f"shape ({d},), got {w.dtype} {tuple(w.shape)}")
     if w.device != x.device:
         raise ValueError(f"x on {x.device} but w on {w.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "rms_norm has no backward kernel yet (training slice)")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rms_norm kernel takes contiguous tensors")
     per_vec = 16 // x.element_size()
@@ -84,7 +116,8 @@ def _rms_norm_cuda(x: torch.Tensor, w: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d,
-                 float(eps), _DTYPE_CODES[x.dtype], stream)
+                 float(eps), _DTYPE_CODES[x.dtype], _DTYPE_CODES[w.dtype],
+                 stream)
     _build.check(lib, err, "rms_norm")
     rms_norm.launches += 1
     return y

@@ -17,11 +17,15 @@ import sys
 import pytest
 import torch
 
+from ray_tpu_torch import bench
 from ray_tpu_torch.models.config import tiny
+from ray_tpu_torch.models.convert import cast_for_serving
 from ray_tpu_torch.models.transformer import Transformer
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.attention import (flash_attention,
-                                         flash_attention_reference)
+from ray_tpu_torch.ops.attention import (_flash_bwd_cuda, flash_attention,
+                                         flash_attention_bwd_reference,
+                                         flash_attention_reference,
+                                         mha_reference)
 from ray_tpu_torch.ops.norms import rms_norm, rms_norm_reference
 from ray_tpu_torch.serve.llm.engine import EngineCore
 
@@ -90,7 +94,8 @@ def test_flash_kernel_takes_strided_inputs(dev):
 @pytest.mark.cuda
 def test_wrappers_raise_on_shapes_the_kernels_do_not_take(dev):
     bf = torch.bfloat16
-    before = (rms_norm.launches, flash_attention.launches)
+    before = (rms_norm.launches, flash_attention.launches,
+              flash_attention.dkdv_launches, flash_attention.dq_launches)
     with pytest.raises(ValueError):
         rms_norm(torch.ones(4, 4100, device=dev, dtype=bf),
                  torch.zeros(4100, device=dev))
@@ -109,10 +114,142 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take(dev):
     kv = torch.ones(1, 2, 8, 64, device=dev, dtype=bf)
     with pytest.raises(ValueError):
         flash_attention(q, kv, kv)
-    q = torch.ones(1, 2, 8, 64, device=dev, dtype=bf, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q)
-    assert (rms_norm.launches, flash_attention.launches) == before
+    q = torch.ones(1, 2, 64, 64, device=dev, dtype=bf)
+    lse = torch.zeros(1, 2, 64, device=dev)
+    with pytest.raises(TypeError):                       # f32 dO
+        _flash_bwd_cuda(q, q, q, q, lse, q.float(), True, 0.125)
+    with pytest.raises(ValueError):                      # (b, h, 8, sq) lse
+        _flash_bwd_cuda(q, q, q, q, lse[:, :, None].expand(1, 2, 8, 64), q,
+                        True, 0.125)
+    with pytest.raises(ValueError):                      # d stride 2
+        _flash_bwd_cuda(q, q, q, q, lse, torch.ones(
+            1, 2, 64, 128, device=dev, dtype=bf)[..., ::2], True, 0.125)
+    assert (rms_norm.launches, flash_attention.launches,
+            flash_attention.dkdv_launches, flash_attention.dq_launches) \
+        == before
+
+
+@pytest.mark.cuda
+def test_rms_norm_kernel_takes_a_bf16_weight(dev):
+    """The bench model trains with bf16 parameters: a bf16 w launches the
+    kernel (it used to raise) and is read in f32."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = (3 * torch.randn(4096, 2048, generator=gen, device=dev)).bfloat16()
+    w = (0.1 * torch.randn(2048, generator=gen, device=dev)).bfloat16()
+    before = rms_norm.launches
+    y = rms_norm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert rms_norm.launches == before + 1
+    torch.testing.assert_close(y.float(), rms_norm_reference(x, w, 1e-5)
+                               .float(), rtol=2 ** -7, atol=1e-6)
+
+
+def _bwd_inputs(dev, b, h, kvh, s, d, causal, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(heads):
+        return torch.randn(b, heads, s, d, generator=gen,
+                           device=dev).bfloat16()
+    q, k, v, do = r(h), r(kvh), r(kvh), r(h)
+    o, lse = flash_attention_reference(q, k, v, causal)
+    return q, k, v, o, lse, do
+
+
+def _assert_rel(got, want, rel):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,kvh,s,d", [(4, 4, 64, 64), (8, 2, 100, 64),
+                                       (32, 8, 1000, 128)])
+def test_flash_bwd_kernels_match_plain(dev, h, kvh, s, d, causal):
+    """dK/dV and dQ against the plain backward, GQA and ragged s; both
+    round P and dS to bf16, so 1e-2 of max|ref| (chip_smoke.py TOL)."""
+    q, k, v, o, lse, do = _bwd_inputs(dev, 2, h, kvh, s, d, causal, s + h)
+    before = (flash_attention.dkdv_launches, flash_attention.dq_launches)
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (flash_attention.dkdv_launches, flash_attention.dq_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _assert_rel(g, w, 1e-2)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_takes_a_strided_do(dev):
+    """dO as the model hands it back: a transposed view of (b, s, h, d)
+    memory. Same bits as a contiguous dO."""
+    q, k, v, o, lse, do = _bwd_inputs(dev, 1, 8, 2, 130, 128, True, 4)
+    strided = do.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    for a, b in zip(_flash_bwd_cuda(q, k, v, o, lse, strided, True, 0.1),
+                    _flash_bwd_cuda(q, k, v, o, lse, do, True, 0.1)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh,s,d", [(4, 4, 256, 128), (8, 2, 77, 64)])
+def test_flash_function_grads_match_autograd_reference(dev, h, kvh, s, d):
+    """Gradients through flash_attention (forward kernel, then both
+    backward kernels) against autograd through mha_reference in f32 on
+    the same values: 2e-2 of max|ref| (chip_smoke.py TOL)."""
+    q, k, v, _, _, g = _bwd_inputs(dev, 2, h, kvh, s, d, True, 11)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*ins), ins, g)
+    refs = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(mha_reference(*refs), refs, g.float())
+    for a, w in zip(got, want):
+        _assert_rel(a, w, 2e-2)
+
+
+@pytest.mark.cuda
+def test_gradient_flows_through_both_wrappers_on_the_card(dev):
+    """A training step of a small bf16 model on the card goes through
+    every kernel, forward and backward (both wrappers used to raise
+    under autograd), and its grads agree with the CPU plain path in f32
+    on the same parameter values: 5e-2 of each grad's max|ref|."""
+    cfg = dataclasses.replace(tiny(), d_model=256, n_heads=2, n_kv_heads=2,
+                              d_ff=512, dtype="bfloat16",
+                              param_dtype="bfloat16")
+    cpu = Transformer(cfg).init(0, device="cpu")
+    on_card = {k: ([{n: t.to(dev) for n, t in layer.items()} for layer in v]
+                   if k == "layers" else v.to(dev)) for k, v in cpu.items()}
+    f32 = {k: ([{n: t.float() for n, t in layer.items()} for layer in v]
+               if k == "layers" else v.float()) for k, v in cpu.items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 96),
+                         generator=torch.Generator().manual_seed(1))
+    grads = []
+    for c, p, t in ((cfg, on_card, toks.to(dev)),
+                    (dataclasses.replace(cfg, dtype="float32",
+                                         param_dtype="float32"), f32, toks)):
+        leaves = bench.leaves(p)
+        for x in leaves:
+            x.requires_grad_(True)
+        counts = (flash_attention.launches, flash_attention.dkdv_launches,
+                  flash_attention.dq_launches, rms_norm.launches)
+        grads.append(torch.autograd.grad(
+            Transformer(c).loss(p, {"tokens": t}), leaves))
+        added = [a - b for a, b in zip(
+            (flash_attention.launches, flash_attention.dkdv_launches,
+             flash_attention.dq_launches, rms_norm.launches), counts)]
+        assert added == ([2, 2, 2, 5] if p is on_card else [0, 0, 0, 0])
+    for g, w in zip(*grads):
+        _assert_rel(g.cpu(), w, 5e-2)
+
+
+@pytest.mark.cuda
+def test_save_attn_remat_refuses_on_the_card(dev):
+    cfg = dataclasses.replace(tiny(), d_model=256, n_heads=2, n_kv_heads=2,
+                              dtype="bfloat16", remat=True,
+                              remat_policy="save_attn")
+    params = Transformer(cfg).init(0, device=dev)
+    with pytest.raises(NotImplementedError, match="save_attn"):
+        Transformer(cfg).loss(params, {"tokens": torch.zeros(
+            1, 64, dtype=torch.long, device=dev)})
 
 
 @pytest.mark.cuda
@@ -122,7 +259,7 @@ def test_engine_on_the_card_matches_the_cpu_plain_path(dev):
     through the kernels on every layer."""
     cfg = dataclasses.replace(tiny(), d_model=256, n_heads=4, n_kv_heads=2,
                               d_ff=512, dtype="bfloat16")
-    params = Transformer(cfg).init(0, device=dev)
+    params = cast_for_serving(Transformer(cfg).init(0, device=dev), cfg)
     core = EngineCore(cfg, params, num_pages=32, page_size=8, max_batch=4)
     assert core.device == dev
     rms_norm.launches = flash_attention.launches = 0
@@ -159,6 +296,14 @@ def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
 def test_every_kernel_source_is_listed():
     on_disk = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert on_disk == sorted(_build.SOURCES)
+    assert {"flash_fwd", "flash_bwd", "rms_norm"} <= set(_build.SOURCES)
+
+
+def test_bench_needs_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main([])
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

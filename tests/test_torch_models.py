@@ -17,7 +17,8 @@ from ray_tpu.models.config import tiny as jtiny
 from ray_tpu.models.transformer import Transformer as JTransformer
 from ray_tpu_torch.models import decode
 from ray_tpu_torch.models.config import PRESETS, tiny
-from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models.convert import (cast_for_serving,
+                                          params_from_jax)
 from ray_tpu_torch.models.transformer import Transformer
 
 
@@ -75,13 +76,18 @@ def test_params_from_jax_structure_and_dtypes():
         assert tuple(params["layers"][1][name].shape) == arr.shape[1:]
     np.testing.assert_array_equal(params["layers"][1]["wq"].numpy(),
                                   np.asarray(jparams["layers"]["wq"][1]))
+    # every leaf keeps the parameter dtype, as the JAX tree does; the
+    # serving cast alone moves the matmul weights to the activation dtype
     bf = dataclasses.replace(cfg, dtype="bfloat16")
     p16 = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), bf,
                           device="cpu")
-    assert p16["layers"][0]["wq"].dtype == torch.bfloat16
-    assert p16["embed"].dtype == p16["lm_head"].dtype == torch.bfloat16
-    assert p16["layers"][0]["attn_norm"].dtype == torch.float32
-    assert p16["final_norm"].dtype == torch.float32
+    assert p16["layers"][0]["wq"].dtype == torch.float32
+    assert p16["embed"].dtype == p16["lm_head"].dtype == torch.float32
+    served = cast_for_serving(p16, bf)
+    assert served["layers"][0]["wq"].dtype == torch.bfloat16
+    assert served["embed"].dtype == served["lm_head"].dtype == torch.bfloat16
+    assert served["layers"][0]["attn_norm"].dtype == torch.float32
+    assert served["final_norm"].dtype == torch.float32
 
 
 def test_init_structure_matches_jax_and_is_seeded():
@@ -93,8 +99,7 @@ def test_init_structure_matches_jax_and_is_seeded():
     for name, arr in jparams["layers"].items():
         t = a["layers"][0][name]
         assert tuple(t.shape) == arr.shape[1:]
-        assert t.dtype == (torch.float32 if name.endswith("norm")
-                           else torch.bfloat16)
+        assert t.dtype == torch.float32           # the parameter dtype
     assert torch.equal(a["layers"][1]["up"], b["layers"][1]["up"])
     assert not torch.equal(a["layers"][1]["up"], c["layers"][1]["up"])
     assert abs(a["embed"].float().std().item() - 0.02) < 2e-3
