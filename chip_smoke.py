@@ -7,15 +7,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles every CUDA kernel of the serving and training paths
      from `ray_tpu_torch/ops/csrc/` (one nvcc per source, in parallel);
+     reads each backward kernel's registers, shared memory and spills
+     from ptxas, and its blocks per SM from the card;
   3. check: each kernel against its plain PyTorch version on the card,
-     at the main paths' shapes and ragged ones, with stated tolerances;
+     at the main paths' shapes and ragged ones (the backward's at every
+     edge of its 64-row tiles), with stated tolerances; two launches of
+     the backward kernels give the same bits;
      the flash autograd Function against autograd through
      `mha_reference`; a 2-layer model at the training width, its loss
      and grads in bf16 on the card against f32 on the CPU; a shape a
      kernel does not take must raise;
   4. time: each kernel, its plain version and one library call that
      computes the same function (a yardstick the port never calls),
-     with CUDA events, beside the least time the card could take;
+     with CUDA events, beside the least time the card could take (the
+     two backward kernels also as a pair against SDPA's backward);
   5. serve: llama3-8b at full width and depth (random weights from a
      seed) through the port's EngineCore, five requests, one submitted
      mid-flight; every serving kernel must have launched during this
@@ -34,8 +39,10 @@ and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
+import itertools
 import json
 import re
 import statistics
@@ -53,8 +60,8 @@ from ray_tpu_torch.models.config import llama3_8b
 from ray_tpu_torch.models.convert import init_for_serving
 from ray_tpu_torch.models.transformer import Transformer
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.attention import (_flash_bwd_cuda, _flash_bwd_launch,
-                                         flash_attention,
+from ray_tpu_torch.ops.attention import (_bwd_kernels, _flash_bwd_cuda,
+                                         _flash_bwd_launch, flash_attention,
                                          flash_attention_bwd_reference,
                                          flash_attention_reference,
                                          mha_reference)
@@ -92,6 +99,11 @@ TRAIN_STEPS, TRAIN_WARMUP = 20, 2
 #    __expf, so a rounding flips on a few entries at most, and both round
 #    the f32 sums to bf16: a difference of a bf16 ulp or two at the
 #    largest values, 2^-7 of max|ref|; the limit is 1e-2 of max|ref|.
+#    At s = 1 (one key: P = 1 and O = V, so dP = delta) dQ and dK are 0
+#    in exact arithmetic and max|ref| is f32 rounding noise (~1e-7) on
+#    both sides; there max|ref| is taken as at least 1e-3, three orders
+#    below the gradients' scale in every other case, so a fault still
+#    shows.
 #  * the autograd Function (bf16 kernels) against autograd through
 #    mha_reference in f32 on the same values: O, P, dS and the grads
 #    are rounded to bf16 (2^-9 relative each) on the kernel side only;
@@ -108,6 +120,7 @@ TOL = {
     "flash_lse": dict(rtol=1e-4, atol=1e-3),
     "logits_rel_to_max": 0.05,
     "flash_bwd_rel_to_max": 1e-2,
+    "flash_bwd_floor_s1": 1e-3,
     "autograd_rel_to_max": 2e-2,
     "model_grad_rel_to_max": 5e-2,
     "model_loss_abs": 1e-2,
@@ -134,16 +147,65 @@ def card() -> tuple:
     raise RuntimeError(f"no published peaks for {name!r} in PEAKS")
 
 
-def build() -> float:
+def ptxas_resources(text: str) -> dict:
+    """{kernel entry: {registers, spill_store_bytes, spill_load_bytes,
+    smem_static_bytes}} from nvcc's `-Xptxas -v` messages."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {"smem_static_bytes": 0})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["spill_store_bytes"] = int(m.group(1))
+            entry["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            entry["smem_static_bytes"] = int(m.group(1))
+    return out
+
+
+def build() -> tuple:
+    """(build seconds, {("dkdv" or "dq", head_dim): the backward kernel's
+    ptxas resources, its dynamic shared memory and blocks per SM})."""
     t0 = time.perf_counter()
     libs = _build.build()
     dt = time.perf_counter() - t0
+    bwd = {}
     for name, path in libs.items():
         log(f"built {name}: {path.name}")
-        for line in path.with_suffix(".log").read_text().splitlines():
+        text = path.with_suffix(".log").read_text()
+        for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {line.strip()}")
-    return dt
+        for entry, res in ptxas_resources(text).items():
+            m = re.search(r"flash_bwd_(dkdv|dq)_kernelILi(\d+)E", entry)
+            if m:
+                bwd[m.group(1), int(m.group(2))] = res
+    lib = _bwd_kernels()[0]
+    occupancy = lib.rtt_flash_bwd_occupancy
+    occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int),
+                          ctypes.POINTER(ctypes.c_int)]
+    for (kind, d), res in sorted(bwd.items()):
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        _build.check(lib, occupancy(int(kind == "dq"), d, ctypes.byref(smem),
+                                    ctypes.byref(blocks)), "occupancy")
+        res["smem_dynamic_bytes"] = smem.value
+        res["blocks_per_sm"] = blocks.value
+        if res.get("spill_store_bytes", 0):
+            log(f"SPILL: flash_bwd_{kind} head_dim {d}: "
+                f"{res['spill_store_bytes']} bytes spill stores")
+    if len(bwd) != 4:
+        raise RuntimeError(f"ptxas reported {sorted(bwd)} backward kernels")
+    return dt, bwd
 
 
 def compare(out, ref, tol, what) -> float:
@@ -203,10 +265,11 @@ def check_flash(dev) -> tuple:
     return worst_o, worst_lse
 
 
-def rel_err(got, ref, rel, what) -> tuple:
-    """(max|got - ref|, that over max|ref|), raising above `rel`."""
+def rel_err(got, ref, rel, what, floor: float = 0.0) -> tuple:
+    """(max|got - ref|, that over max|ref|), raising above `rel`; max|ref|
+    is taken as at least `floor`."""
     err = (got.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
+    scale = max(ref.float().abs().max().item(), floor)
     if not err <= rel * scale:
         raise AssertionError(f"{what}: max_abs_err {err:.4e} above "
                              f"{rel} x max|ref| {scale:.4e}")
@@ -214,11 +277,17 @@ def rel_err(got, ref, rel, what) -> tuple:
 
 
 # (b, h, kvh, s, d, causal): the training shape, the llama3-8b GQA shape,
-# ragged s 1000 (both masks), head_dim 64 (both masks)
+# ragged s 1000 (both masks), head_dim 64 (both masks); then the edges of
+# the kernels' 64-row tiles, s 1 to 200 with both masks and head dims, the
+# GQA group cycling through 1, 4 and 8
+BWD_EDGES = itertools.product((1, 63, 64, 65, 127, 129, 200), (64, 128),
+                              (True, False))
 BWD_CASES = [(TRAIN_B, TRAIN_HEADS, TRAIN_HEADS, TRAIN_S, 128, True),
              (1, HEADS, KV_HEADS, S_MAIN, 128, True),
              (1, 8, 2, 1000, 128, True), (1, 8, 2, 1000, 128, False),
-             (2, 8, 2, 300, 64, True), (2, 8, 2, 300, 64, False)]
+             (2, 8, 2, 300, 64, True), (2, 8, 2, 300, 64, False)] + [
+    (2, 8, 8 // (1, 4, 8)[i % 3], s, d, causal)
+    for i, (s, d, causal) in enumerate(BWD_EDGES)]
 
 
 def bwd_inputs(b, h, kvh, s, d, causal, dev, gen):
@@ -245,8 +314,10 @@ def check_flash_bwd(dev) -> dict:
                 (before[0] + 1, before[1] + 1):
             raise AssertionError("backward kernels did not launch once each")
         want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+        floor = TOL["flash_bwd_floor_s1"] if s == 1 else 0.0
         errs = [rel_err(g, w, TOL["flash_bwd_rel_to_max"],
-                        f"flash bwd {name} {(b, h, kvh, s, d)} {causal=}")
+                        f"flash bwd {name} {(b, h, kvh, s, d)} {causal=}",
+                        floor)
                 for name, g, w in zip(("dq", "dk", "dv"), got, want)]
         log(f"check flash_bwd b={b} h={h}/{kvh} s={s} d={d} "
             f"causal={causal!s:5s}: max_abs_err (/max|ref|) " + ", ".join(
@@ -257,6 +328,25 @@ def check_flash_bwd(dev) -> dict:
                 worst[kind] = [max(worst[kind][0], a), max(worst[kind][1], r)]
         del q, k, v, o, lse, do, got, want
     return worst
+
+
+def check_bwd_determinism(dev) -> None:
+    """Two launches of both backward kernels on the same inputs give the
+    same bits: no atomics, a fixed order of sums."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for b, h, kvh, s, d in ((TRAIN_B, TRAIN_HEADS, TRAIN_HEADS, TRAIN_S, 128),
+                            (1, HEADS, KV_HEADS, 1000, 128),
+                            (2, 8, 1, 129, 64)):
+        ins = bwd_inputs(b, h, kvh, s, d, True, dev, gen)
+        first = _flash_bwd_cuda(*ins, True, d ** -0.5)
+        second = _flash_bwd_cuda(*ins, True, d ** -0.5)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dq", "dk", "dv"), first, second):
+            if not torch.equal(x, y):
+                raise AssertionError(f"flash bwd {name} {(b, h, kvh, s, d)} "
+                                     f"differs between two launches")
+        log(f"check flash_bwd determinism b={b} h={h}/{kvh} s={s} d={d}: "
+            f"dq, dk, dv bitwise equal over two launches")
 
 
 def check_autograd(dev) -> float:
@@ -483,12 +573,23 @@ def time_flash_bwd(dev, peaks) -> dict:
         # reads q, k, v, dO (bf16) and lse, delta (f32); writes dK and dV,
         # or dQ (bf16)
         nbytes = (4 + writes) * b * h * s * d * 2 + 2 * b * h * s * 4
-        t["bound_ms"], t["bound_by"] = bound(nbytes, products * 2 * d * pairs,
-                                             peaks[1], peaks)
+        flops = products * 2 * d * pairs
+        t["bound_ms"], t["bound_by"] = bound(nbytes, flops, peaks[1], peaks)
+        t["tflops"] = flops / t["ms"] / 1e9
+        t["bound_share"] = t["bound_ms"] / t["ms"]
         t.update(shared)
         t["shape"] = (f"q/k/v/dO ({b}, {h}, {s}, {d}) bf16, causal; plain "
                       f"and library compute dQ, dK, dV together")
         out[kind] = t
+    # both kernels together against SDPA's backward, which computes the
+    # same three gradients in one call
+    pair = {key: out["dkdv"][key] + out["dq"][key]
+            for key in ("ms", "call_ms", "bound_ms")}
+    pair["tflops"] = 7 * 2 * d * pairs / pair["ms"] / 1e9
+    pair["bound_share"] = pair["bound_ms"] / pair["ms"]
+    pair["library_ms"] = shared["library_ms"]
+    pair["vs_library"] = pair["ms"] / shared["library_ms"]
+    out["pair"] = pair
     return out
 
 
@@ -776,11 +877,13 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    log(f"build: {build():.1f} s")
+    build_s, bwd_res = build()
+    log(f"build: {build_s:.1f} s")
 
     rms_err = check_rms(dev)
     flash_err, lse_err = check_flash(dev)
     bwd_err = check_flash_bwd(dev)
+    check_bwd_determinism(dev)
     autograd_err = check_autograd(dev)
     model_check = check_model_grads(dev)
     check_refusals(dev)
@@ -795,7 +898,8 @@ def main() -> None:
                     ("flash_fwd s=2048", flash),
                     ("flash_fwd s=4096", flash_4k),
                     ("flash_dkdv train", bwd["dkdv"]),
-                    ("flash_dq train", bwd["dq"])):
+                    ("flash_dq train", bwd["dq"]),
+                    ("flash_bwd pair train", bwd["pair"])):
         log(f"time {what}: " + json.dumps(t))
     gc.collect()
     torch.cuda.empty_cache()
@@ -827,7 +931,15 @@ def main() -> None:
            "max_err_rel_to_max": bwd_err[kind][1],
            "tolerance": {"rel_to_max": TOL["flash_bwd_rel_to_max"]},
            "autograd_rel_err": autograd_err,
-           **bwd[kind], "kernel_ms": bwd[kind]["ms"]}
+           **bwd[kind], "kernel_ms": bwd[kind]["ms"],
+           # resources at head_dim 128, the training path's, then both
+           "registers": bwd_res[kind, 128]["registers"],
+           "smem_bytes": bwd_res[kind, 128]["smem_static_bytes"]
+           + bwd_res[kind, 128]["smem_dynamic_bytes"],
+           "spill_bytes": bwd_res[kind, 128]["spill_store_bytes"]
+           + bwd_res[kind, 128]["spill_load_bytes"],
+           "ptxas": {d: bwd_res[kind, d] for d in (64, 128)},
+           "pair": bwd["pair"]}
           for kind, line in (("dkdv", 177), ("dq", 244))),
         {"name": "rms_norm", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/rms_norm.cu",

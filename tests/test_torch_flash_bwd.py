@@ -18,8 +18,11 @@ from ray_tpu_torch.ops import attention
 
 # (h, kvh, s): MHA and GQA on a block multiple (s 64), and ragged s 80
 # (no multiple of the 32 block: the Pallas kernels zero tail q/dO and K
-# rows and mask tail columns; the port has no padding at all)
-CASES = [(4, 4, 64), (4, 2, 64), (4, 4, 80), (4, 2, 80)]
+# rows and mask tail columns; the port has no padding at all); then the
+# edges of the CUDA kernels' 64-row tiles: one row short of a tile, one
+# row past one and one row past two, with GQA groups 1, 2 and 4
+CASES = [(4, 4, 64), (4, 2, 64), (4, 4, 80), (4, 2, 80),
+         (4, 4, 63), (4, 2, 65), (4, 1, 129)]
 D = 32
 
 
