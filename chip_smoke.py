@@ -7,20 +7,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles every CUDA kernel of the serving and training paths
      from `ray_tpu_torch/ops/csrc/` (one nvcc per source, in parallel);
-     reads each backward kernel's registers, shared memory and spills
-     from ptxas, and its blocks per SM from the card;
+     reads each flash kernel's registers, shared memory and spills from
+     ptxas, and its blocks per SM from the card;
   3. check: each kernel against its plain PyTorch version on the card,
-     at the main paths' shapes and ragged ones (the backward's at every
-     edge of its 64-row tiles), with stated tolerances; two launches of
-     the backward kernels give the same bits;
+     at the main paths' shapes and ragged ones (the forward over
+     FWD_CASES, the backward over BWD_CASES: every edge of their tiles),
+     with stated tolerances; two launches of the forward and of the
+     backward kernels give the same bits;
      the flash autograd Function against autograd through
      `mha_reference`; a 2-layer model at the training width, its loss
      and grads in bf16 on the card against f32 on the CPU; a shape a
      kernel does not take must raise;
   4. time: each kernel, its plain version and one library call that
      computes the same function (a yardstick the port never calls),
-     with CUDA events, beside the least time the card could take (the
-     two backward kernels also as a pair against SDPA's backward);
+     with CUDA events, beside the least time the card could take, at the
+     serving and training shapes (the two backward kernels also as a
+     pair against SDPA's backward);
   5. serve: llama3-8b at full width and depth (random weights from a
      seed) through the port's EngineCore, five requests, one submitted
      mid-flight; every serving kernel must have launched during this
@@ -31,9 +33,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
   6. train: the model of the repo's `bench.py` (~0.95 B params, bf16,
      seq 2048, batch 2) at full width and depth through
      `ray_tpu_torch.bench.train_step` (loss, backward, AdamW): 2 warm-up
-     and 20 timed steps on a fixed batch, finite and falling loss, the
-     launch counts of every kernel per step, one `remat=True` step, and
-     a torch.profiler split of one step with its device idle share.
+     and 20 timed steps on a fixed batch (step time, and the host's
+     time to enqueue a step), finite and falling loss, the launch counts
+     of every kernel per step, one `remat=True` step, and a
+     torch.profiler split of one step with its device idle share.
 The last three lines are the card (`nvidia-smi`), the kernels as JSON,
 and `{"ok": true, "device": {...}}`.
 """
@@ -61,7 +64,8 @@ from ray_tpu_torch.models.convert import init_for_serving
 from ray_tpu_torch.models.transformer import Transformer
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.attention import (_bwd_kernels, _flash_bwd_cuda,
-                                         _flash_bwd_launch, flash_attention,
+                                         _flash_bwd_launch, _kernel,
+                                         flash_attention,
                                          flash_attention_bwd_reference,
                                          flash_attention_reference,
                                          mha_reference)
@@ -80,7 +84,8 @@ EPS = 1e-5                                # llama3-8b norm_eps
 D_MODEL, HEADS, KV_HEADS, HEAD_DIM = 4096, 32, 8, 128
 S_MAIN = 2048                             # prefill bucket timed
 DECODE_ROWS = 8                           # EngineCore max_batch
-TRAIN_B, TRAIN_S, TRAIN_HEADS = 2, 2048, 16   # bench.py's training shape
+# bench.py's training shape: batch, seq, heads (MHA), d_model
+TRAIN_B, TRAIN_S, TRAIN_HEADS, TRAIN_D = 2, 2048, 16, 2048
 TRAIN_STEPS, TRAIN_WARMUP = 20, 2
 # Tolerances, set from the arithmetic before any run:
 #  * RMSNorm bf16: both sides round the same f32 value (up to sum order
@@ -172,40 +177,59 @@ def ptxas_resources(text: str) -> dict:
     return out
 
 
+def flash_entry(entry: str):
+    """(kind, head_dim) of a flash kernel's mangled entry name, kind
+    "fwd", "dkdv" or "dq"; None for another kernel."""
+    m = re.search(r"flash_(fwd|bwd_dkdv|bwd_dq)_kernelILi(\d+)E", entry)
+    return (m.group(1).removeprefix("bwd_"), int(m.group(2))) if m else None
+
+
 def build() -> tuple:
-    """(build seconds, {("dkdv" or "dq", head_dim): the backward kernel's
-    ptxas resources, its dynamic shared memory and blocks per SM})."""
+    """(build seconds, {("fwd", head_dim) or ("dkdv" or "dq", head_dim):
+    the flash kernel's ptxas resources, its dynamic shared memory and
+    blocks per SM})."""
     t0 = time.perf_counter()
     libs = _build.build()
     dt = time.perf_counter() - t0
-    bwd = {}
+    flash = {}
     for name, path in libs.items():
         log(f"built {name}: {path.name}")
         text = path.with_suffix(".log").read_text()
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  ptxas {line.strip()}")
+            if "instructions are serialized" in line:
+                log(f"SERIALIZED: {name}: {line.strip()}")
         for entry, res in ptxas_resources(text).items():
-            m = re.search(r"flash_bwd_(dkdv|dq)_kernelILi(\d+)E", entry)
-            if m:
-                bwd[m.group(1), int(m.group(2))] = res
-    lib = _bwd_kernels()[0]
-    occupancy = lib.rtt_flash_bwd_occupancy
-    occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
-                          ctypes.POINTER(ctypes.c_int),
-                          ctypes.POINTER(ctypes.c_int)]
-    for (kind, d), res in sorted(bwd.items()):
+            key = flash_entry(entry)
+            if key:
+                flash[key] = res
+    ptr = ctypes.POINTER(ctypes.c_int)
+    fwd_lib, bwd_lib = _kernel()[0], _bwd_kernels()[0]
+    fwd_lib.rtt_flash_fwd_occupancy.argtypes = [ctypes.c_int, ptr, ptr]
+    bwd_lib.rtt_flash_bwd_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                ptr, ptr]
+    for (kind, d), res in sorted(flash.items()):
         smem, blocks = ctypes.c_int(), ctypes.c_int()
-        _build.check(lib, occupancy(int(kind == "dq"), d, ctypes.byref(smem),
-                                    ctypes.byref(blocks)), "occupancy")
+        out = (ctypes.byref(smem), ctypes.byref(blocks))
+        if kind == "fwd":
+            lib, err = fwd_lib, fwd_lib.rtt_flash_fwd_occupancy(d, *out)
+        else:
+            lib = bwd_lib
+            err = bwd_lib.rtt_flash_bwd_occupancy(int(kind == "dq"), d, *out)
+        _build.check(lib, err, "occupancy")
         res["smem_dynamic_bytes"] = smem.value
         res["blocks_per_sm"] = blocks.value
-        if res.get("spill_store_bytes", 0):
-            log(f"SPILL: flash_bwd_{kind} head_dim {d}: "
-                f"{res['spill_store_bytes']} bytes spill stores")
-    if len(bwd) != 4:
-        raise RuntimeError(f"ptxas reported {sorted(bwd)} backward kernels")
-    return dt, bwd
+        log(f"  flash_{kind} head_dim {d}: {res}")
+        if res.get("spill_store_bytes", 0) or res.get("spill_load_bytes", 0):
+            log(f"SPILL: flash_{kind} head_dim {d}: "
+                f"{res['spill_store_bytes']} bytes spill stores, "
+                f"{res['spill_load_bytes']} bytes spill loads")
+    want = {(kind, d) for kind in ("fwd", "dkdv", "dq") for d in (64, 128)}
+    if set(flash) != want:
+        raise RuntimeError(f"ptxas reported flash kernels {sorted(flash)}, "
+                           f"expected {sorted(want)}")
+    return dt, flash
 
 
 def compare(out, ref, tol, what) -> float:
@@ -225,7 +249,7 @@ def check_rms(dev) -> float:
         for rows, d, wdt in ((DECODE_ROWS, D_MODEL, torch.float32),
                              (S_MAIN, D_MODEL, torch.float32),
                              (1000, D_MODEL, torch.float32),
-                             (TRAIN_B * TRAIN_S, 2048, torch.bfloat16)):
+                             (TRAIN_B * TRAIN_S, TRAIN_D, torch.bfloat16)):
             x = torch.randn(rows, d, generator=gen, device=dev)
             x = (3 * x).to(dtype)
             w = (0.1 * torch.randn(d, generator=gen, device=dev)).to(wdt)
@@ -241,28 +265,72 @@ def check_rms(dev) -> float:
     return worst
 
 
-def qkv(s, dev, gen, b=1):
-    def r(h):
-        return torch.randn(b, h, s, HEAD_DIM, generator=gen, device=dev,
+# (b, h, kvh, sq, sk, d, causal) for the forward: the llama3-8b prefill
+# and training shapes (both masks), s 4096, ragged s 1000, sq != sk under
+# each mask (top-left causal alignment); then the edges of the kernel's
+# 64-row warpgroup tiles, 128-row blocks and 128-row K/V tiles, s 1 to 257
+# with both masks and head dims, the GQA group cycling through 1, 4 and 8
+FWD_EDGES = itertools.product(
+    (1, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257), (64, 128),
+    (True, False))
+FWD_CASES = [(1, HEADS, KV_HEADS, S_MAIN, S_MAIN, HEAD_DIM, True),
+             (1, HEADS, KV_HEADS, S_MAIN, S_MAIN, HEAD_DIM, False),
+             (TRAIN_B, TRAIN_HEADS, TRAIN_HEADS, TRAIN_S, TRAIN_S, 128, True),
+             (1, HEADS, KV_HEADS, 4096, 4096, HEAD_DIM, True),
+             (1, 8, 2, 1000, 1000, 128, True),
+             (1, 8, 2, 1000, 1000, 128, False),
+             (2, 8, 2, 100, 300, 128, True), (2, 8, 2, 100, 300, 128, False),
+             (2, 8, 2, 300, 100, 64, True), (2, 8, 2, 300, 100, 64, False)] + [
+    (2, 8, 8 // (1, 4, 8)[i % 3], s, s, d, causal)
+    for i, (s, d, causal) in enumerate(FWD_EDGES)]
+
+
+def fwd_inputs(b, h, kvh, sq, sk, d, dev, gen):
+    def r(heads, s):
+        return torch.randn(b, heads, s, d, generator=gen, device=dev,
                            dtype=torch.float32).to(torch.bfloat16)
-    return r(HEADS), r(KV_HEADS), r(KV_HEADS)
+    return r(h, sq), r(kvh, sk), r(kvh, sk)
 
 
 def check_flash(dev) -> tuple:
+    """The forward kernel against the plain version over FWD_CASES: O and
+    the natural-log lse."""
     gen = torch.Generator(device=dev).manual_seed(2)
     worst_o = worst_lse = 0.0
-    for s in (16, 1000, S_MAIN):
-        q, k, v = qkv(s, dev, gen)
-        for causal in (True, False):
-            o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-            ro, rlse = flash_attention_reference(q, k, v, causal)
-            eo = compare(o, ro, TOL["flash_o"], f"flash O s={s} {causal=}")
-            el = compare(lse, rlse, TOL["flash_lse"],
-                         f"flash lse s={s} {causal=}")
-            log(f"check flash_fwd s={s:5d} causal={causal!s:5s}: "
-                f"O max_abs_err {eo:.3e}, lse max_abs_err {el:.3e}")
-            worst_o, worst_lse = max(worst_o, eo), max(worst_lse, el)
+    for b, h, kvh, sq, sk, d, causal in FWD_CASES:
+        q, k, v = fwd_inputs(b, h, kvh, sq, sk, d, dev, gen)
+        before = flash_attention.launches
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        if flash_attention.launches != before + 1:
+            raise AssertionError("flash forward kernel did not launch")
+        ro, rlse = flash_attention_reference(q, k, v, causal)
+        what = f"flash fwd b={b} h={h}/{kvh} sq={sq} sk={sk} d={d} " \
+               f"causal={causal!s:5s}"
+        eo = compare(o, ro, TOL["flash_o"], f"{what} O")
+        el = compare(lse, rlse, TOL["flash_lse"], f"{what} lse")
+        log(f"check {what}: O max_abs_err {eo:.3e}, lse max_abs_err "
+            f"{el:.3e}")
+        worst_o, worst_lse = max(worst_o, eo), max(worst_lse, el)
+        del q, k, v, o, lse, ro, rlse
     return worst_o, worst_lse
+
+
+def check_fwd_determinism(dev) -> None:
+    """Two launches of the forward kernel on the same inputs give the
+    same O and lse bits."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for b, h, kvh, s in ((1, HEADS, KV_HEADS, S_MAIN),
+                         (TRAIN_B, TRAIN_HEADS, TRAIN_HEADS, TRAIN_S)):
+        q, k, v = fwd_inputs(b, h, kvh, s, s, HEAD_DIM, dev, gen)
+        first = flash_attention(q, k, v, causal=True, return_lse=True)
+        second = flash_attention(q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("O", "lse"), first, second):
+            if not torch.equal(x, y):
+                raise AssertionError(f"flash fwd {name} {(b, h, kvh, s)} "
+                                     f"differs between two launches")
+        log(f"check flash_fwd determinism b={b} h={h}/{kvh} s={s}: O, lse "
+            f"bitwise equal over two launches")
 
 
 def rel_err(got, ref, rel, what, floor: float = 0.0) -> tuple:
@@ -509,38 +577,46 @@ def time_three(kernel, plain, library, iters: int, plain_iters: int) -> dict:
     return out
 
 
-def time_rms(dev, peaks, rows: int) -> dict:
+def time_rms(dev, peaks, rows: int, d: int = D_MODEL,
+             wdt: torch.dtype = torch.float32) -> dict:
+    """The kernel on bf16 x (rows, d) with a w of dtype `wdt`, against the
+    plain version and F.rms_norm on the same x."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn(rows, D_MODEL, generator=gen, device=dev).bfloat16()
-    w = 0.1 * torch.randn(D_MODEL, generator=gen, device=dev)
-    w1 = (1 + w).bfloat16()   # F.rms_norm's fused path wants x's dtype
+    x = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
+    w = (0.1 * torch.randn(d, generator=gen, device=dev)).to(wdt)
+    w1 = (1 + w.float()).bfloat16()   # F.rms_norm's fused path: x's dtype
     iters = 200 if rows <= 64 else 50
     out = time_three(lambda: rms_norm(x, w, EPS),
                      lambda: rms_norm_reference(x, w, EPS),
-                     lambda: F.rms_norm(x, (D_MODEL,), w1, EPS),
+                     lambda: F.rms_norm(x, (d,), w1, EPS),
                      iters, iters)
-    nbytes = 2 * rows * D_MODEL * 2 + D_MODEL * 4
-    out["bound_ms"], out["bound_by"] = bound(nbytes, 4 * rows * D_MODEL,
-                                             peaks[2], peaks)
-    out["shape"] = f"x ({rows}, {D_MODEL}) bf16, w f32"
+    nbytes = 2 * rows * d * 2 + d * w.element_size()
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 4 * rows * d, peaks[2],
+                                             peaks)
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["shape"] = f"x ({rows}, {d}) bf16, w {str(wdt).split('.')[-1]}"
     return out
 
 
-def time_flash(dev, peaks, s: int) -> dict:
+def time_flash(dev, peaks, b: int, h: int, kvh: int, s: int) -> dict:
+    """The forward kernel, causal, head_dim 128, against the plain version
+    and SDPA on the same inputs."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    q, k, v = qkv(s, dev, gen)
+    q, k, v = fwd_inputs(b, h, kvh, s, s, HEAD_DIM, dev, gen)
     out = time_three(lambda: flash_attention(q, k, v, causal=True),
                      lambda: flash_attention_reference(q, k, v, True),
                      lambda: F.scaled_dot_product_attention(
-                         q, k, v, is_causal=True, enable_gqa=True),
-                     10, 5)
+                         q, k, v, is_causal=True, enable_gqa=kvh != h),
+                     20, 5)
     # causal: the lower triangle's s(s+1)/2 pairs, QK^T and PV, 2 FLOP
     # per multiply-add, for every q head
-    ops = 2 * 2 * HEAD_DIM * HEADS * s * (s + 1) / 2
-    nbytes = (2 * HEADS + 2 * KV_HEADS) * s * HEAD_DIM * 2 + HEADS * s * 4
+    ops = 2 * 2 * HEAD_DIM * b * h * s * (s + 1) / 2
+    nbytes = b * (2 * h + 2 * kvh) * s * HEAD_DIM * 2 + b * h * s * 4
     out["bound_ms"], out["bound_by"] = bound(nbytes, ops, peaks[1], peaks)
-    out["shape"] = (f"q (1, {HEADS}, {s}, {HEAD_DIM}), k/v (1, {KV_HEADS}, "
-                    f"{s}, {HEAD_DIM}) bf16, causal")
+    out["tflops"] = ops / out["ms"] / 1e9
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["shape"] = (f"q ({b}, {h}, {s}, {HEAD_DIM}), k/v ({b}, {kvh}, {s}, "
+                    f"{HEAD_DIM}) bf16, causal")
     return out
 
 
@@ -826,10 +902,12 @@ def train(dev, peaks) -> dict:
               for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
     reset_counts()
-    step_ms = []
+    step_ms, host_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        losses.append(bench.train_step(model, params, opt, batch).item())
+        loss = bench.train_step(model, params, opt, batch)
+        host_ms.append((time.perf_counter() - t0) * 1e3)   # enqueued
+        losses.append(loss.item())                          # finished
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = kernel_counts()
     per_step = {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
@@ -864,6 +942,10 @@ def train(dev, peaks) -> dict:
         "params": cfg.num_params(), "batch": TRAIN_B, "seq": TRAIN_S,
         "steps": TRAIN_STEPS, "losses": losses,
         "step_ms_p50": p50, "step_ms": [round(t, 3) for t in step_ms],
+        # host time to enqueue a step (train_step returns before the card
+        # is done): near the step time, the host holds the step back
+        "host_ms_p50": statistics.median(host_ms),
+        "host_ms": [round(t, 3) for t in host_ms],
         "tokens_per_s": tok_per_s, "mfu": mfu,
         "flops_per_token": cfg.flops_per_token(),
         "launches": launches, "launches_per_step": per_step,
@@ -872,16 +954,28 @@ def train(dev, peaks) -> dict:
     }
 
 
+def resources(res: dict, kind: str) -> dict:
+    """A flash kernel's resources at head_dim 128 (the main paths'), then
+    ptxas's and the card's numbers at both head dims."""
+    r = res[kind, 128]
+    return {"registers": r["registers"],
+            "smem_bytes": r["smem_static_bytes"] + r["smem_dynamic_bytes"],
+            "spill_bytes": r["spill_store_bytes"] + r["spill_load_bytes"],
+            "blocks_per_sm": r["blocks_per_sm"],
+            "ptxas": {d: res[kind, d] for d in (64, 128)}}
+
+
 def main() -> None:
     smi, peaks = card()
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    build_s, bwd_res = build()
+    build_s, res = build()
     log(f"build: {build_s:.1f} s")
 
     rms_err = check_rms(dev)
     flash_err, lse_err = check_flash(dev)
+    check_fwd_determinism(dev)
     bwd_err = check_flash_bwd(dev)
     check_bwd_determinism(dev)
     autograd_err = check_autograd(dev)
@@ -890,13 +984,19 @@ def main() -> None:
 
     rms_pre = time_rms(dev, peaks, S_MAIN)
     rms_dec = time_rms(dev, peaks, DECODE_ROWS)
-    flash = time_flash(dev, peaks, S_MAIN)
-    flash_4k = time_flash(dev, peaks, 4096)
+    rms_train = time_rms(dev, peaks, TRAIN_B * TRAIN_S, TRAIN_D,
+                         torch.bfloat16)
+    flash = time_flash(dev, peaks, 1, HEADS, KV_HEADS, S_MAIN)
+    flash_4k = time_flash(dev, peaks, 1, HEADS, KV_HEADS, 4096)
+    flash_train = time_flash(dev, peaks, TRAIN_B, TRAIN_HEADS, TRAIN_HEADS,
+                             TRAIN_S)
     bwd = time_flash_bwd(dev, peaks)
     for what, t in (("rms_norm prefill", rms_pre),
                     ("rms_norm decode", rms_dec),
+                    ("rms_norm train", rms_train),
                     ("flash_fwd s=2048", flash),
                     ("flash_fwd s=4096", flash_4k),
+                    ("flash_fwd train", flash_train),
                     ("flash_dkdv train", bwd["dkdv"]),
                     ("flash_dq train", bwd["dq"]),
                     ("flash_bwd pair train", bwd["pair"])):
@@ -922,7 +1022,8 @@ def main() -> None:
          "launches_train": trained["launches"]["flash_fwd"],
          "max_abs_err": flash_err, "lse_max_abs_err": lse_err,
          "tolerance": {"o": TOL["flash_o"], "lse": TOL["flash_lse"]},
-         **flash, "kernel_ms": flash["ms"], "s4096": flash_4k},
+         **flash, "kernel_ms": flash["ms"], "s4096": flash_4k,
+         "train": flash_train, **resources(res, "fwd")},
         *({"name": f"flash_{kind}", "route": "cuda",
            "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
            "replaces": f"ray_tpu/ops/attention.py:{line}",
@@ -932,14 +1033,7 @@ def main() -> None:
            "tolerance": {"rel_to_max": TOL["flash_bwd_rel_to_max"]},
            "autograd_rel_err": autograd_err,
            **bwd[kind], "kernel_ms": bwd[kind]["ms"],
-           # resources at head_dim 128, the training path's, then both
-           "registers": bwd_res[kind, 128]["registers"],
-           "smem_bytes": bwd_res[kind, 128]["smem_static_bytes"]
-           + bwd_res[kind, 128]["smem_dynamic_bytes"],
-           "spill_bytes": bwd_res[kind, 128]["spill_store_bytes"]
-           + bwd_res[kind, 128]["spill_load_bytes"],
-           "ptxas": {d: bwd_res[kind, d] for d in (64, 128)},
-           "pair": bwd["pair"]}
+           **resources(res, kind), "pair": bwd["pair"]}
           for kind, line in (("dkdv", 177), ("dq", 244))),
         {"name": "rms_norm", "route": "cuda",
          "source": "ray_tpu_torch/ops/csrc/rms_norm.cu",
@@ -948,7 +1042,8 @@ def main() -> None:
          "launches_train": trained["launches"]["rms_norm"],
          "max_abs_err": rms_err,
          "tolerance": {"bf16": TOL["rms_bf16"], "f32": TOL["rms_f32"]},
-         **rms_pre, "kernel_ms": rms_pre["ms"], "decode": rms_dec},
+         **rms_pre, "kernel_ms": rms_pre["ms"], "decode": rms_dec,
+         "train": rms_train},
     ]
     log("check model: " + json.dumps(model_check))
     print(smi)                  # name, power limit as nvidia-smi gives them

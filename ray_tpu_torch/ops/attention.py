@@ -77,7 +77,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Shapes: q (b, h, s, d); k/v (b, kvh, s, d), kvh | h. With
     `return_lse` also returns the row log-sum-exp (b, h, sq) in f32.
     `block_q`/`block_k` are the TPU kernel's tile sizes, kept for the
-    signature; the CUDA kernel tiles 64 x 64 whatever they say.
+    signature; the CUDA kernel tiles 128 q rows x 128 keys whatever they
+    say.
     """
     del block_q, block_k
     if sm_scale is None:

@@ -34,6 +34,19 @@ from ray_tpu_torch.serve.llm.engine import EngineCore
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _load_chip_smoke():
+    """chip_smoke.py as a module (it imports no JAX, and needs no card to
+    import): its case lists and log parsers are tested here."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+chip_smoke = _load_chip_smoke()
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -61,16 +74,21 @@ def test_rms_norm_kernel_matches_plain(dev, dtype, rows, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h,kvh,s,d", [(4, 4, 1, 64), (8, 2, 100, 64),
-                                       (32, 8, 1000, 128)])
-def test_flash_kernel_matches_plain(dev, h, kvh, s, d, causal):
-    gen = torch.Generator(device=dev).manual_seed(s + h)
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal", [
+    *((2, h, kvh, s, s, d, causal)
+      for h, kvh, s, d in ((4, 4, 1, 64), (8, 2, 100, 64), (32, 8, 1000, 128))
+      for causal in (True, False)),
+    # chip_smoke.py's: the main paths' shapes, sq != sk, and every edge of
+    # the kernel's 64-row warpgroup tiles, 128-row blocks and K/V tiles at
+    # both head dims, GQA groups 1, 4 and 8, both masks
+    *chip_smoke.FWD_CASES])
+def test_flash_kernel_matches_plain(dev, b, h, kvh, sq, sk, d, causal):
+    gen = torch.Generator(device=dev).manual_seed(sq + 3 * sk + h)
 
-    def r(heads):
-        return torch.randn(2, heads, s, d, generator=gen,
+    def r(heads, s):
+        return torch.randn(b, heads, s, d, generator=gen,
                            device=dev).bfloat16()
-    q, k, v = r(h), r(kvh), r(kvh)
+    q, k, v = r(h, sq), r(kvh, sk), r(kvh, sk)
     before = flash_attention.launches
     o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
@@ -78,6 +96,20 @@ def test_flash_kernel_matches_plain(dev, h, kvh, s, d, causal):
     ro, rlse = flash_attention_reference(q, k, v, causal)
     torch.testing.assert_close(o.float(), ro.float(), rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kvh", [(1, 32, 8), (2, 16, 16)])
+def test_flash_fwd_kernel_is_deterministic(dev, b, h, kvh):
+    """No atomics and a fixed order of sums: two launches at the llama3-8b
+    prefill and training shapes give the same O and lse bits."""
+    gen = torch.Generator(device=dev).manual_seed(h)
+    q, k, v = (torch.randn(b, heads, 2048, 128, generator=gen,
+                           device=dev).bfloat16() for heads in (h, kvh, kvh))
+    first = flash_attention(q, k, v, causal=True, return_lse=True)
+    second = flash_attention(q, k, v, causal=True, return_lse=True)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
@@ -129,6 +161,24 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take(dev):
     assert (rms_norm.launches, flash_attention.launches,
             flash_attention.dkdv_launches, flash_attention.dq_launches) \
         == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_kernel_matches_plain_at_the_training_shape(dev, dtype):
+    """(4096, 2048) with a bf16 w, as the bench model trains: two warps a
+    row, and every block walks more than one row."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = (3 * torch.randn(4096, 2048, generator=gen, device=dev)).to(dtype)
+    w = (0.1 * torch.randn(2048, generator=gen, device=dev)).bfloat16()
+    before = rms_norm.launches
+    y = rms_norm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert rms_norm.launches == before + 1
+    tol = (dict(rtol=2 ** -7, atol=1e-6) if dtype == torch.bfloat16
+           else dict(rtol=1e-5, atol=1e-5))
+    torch.testing.assert_close(y.float(), rms_norm_reference(x, w, 1e-5)
+                               .float(), **tol)
 
 
 @pytest.mark.cuda
@@ -335,6 +385,10 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernel
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi128EEEvNS_6ParamsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 178 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__8f4ed862_12_flash_fwd_cu_a0e9620c16flash_fwd_kernelILi64EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__8f4ed862_12_flash_fwd_cu_a0e9620c16flash_fwd_kernelILi64EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
 ptxas info    : Compiling entry function '_Z6kernelv' for 'sm_90a'
 ptxas info    : Function properties for _Z6kernelv
     8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
@@ -342,18 +396,43 @@ ptxas info    : Used 255 registers, used 1 barriers, 4096 bytes smem
 """
 
 
-def test_chip_smoke_reads_registers_and_spills_from_ptxas():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+@pytest.mark.parametrize("entry,key,registers", [
+    ("_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi128EEEvNS_6ParamsE",
+     ("dq", 128), 178),
+    ("_ZN45_GLOBAL__N__8f4ed862_12_flash_fwd_cu_a0e9620c16flash_fwd_kernel"
+     "ILi64EEEvNS_6ParamsE", ("fwd", 64), 168)])
+def test_chip_smoke_reads_registers_and_spills_from_ptxas(entry, key,
+                                                         registers):
     got = chip_smoke.ptxas_resources(PTXAS_LOG)
-    assert got == {
-        "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi128EEEvNS_6ParamsE": {
-            "registers": 178, "spill_store_bytes": 0, "spill_load_bytes": 0,
-            "smem_static_bytes": 0},
-        "_Z6kernelv": {"registers": 255, "spill_store_bytes": 12,
-                       "spill_load_bytes": 16, "smem_static_bytes": 4096}}
+    assert got[entry] == {"registers": registers, "spill_store_bytes": 0,
+                          "spill_load_bytes": 0, "smem_static_bytes": 0}
+    assert chip_smoke.flash_entry(entry) == key
+    assert got["_Z6kernelv"] == {"registers": 255, "spill_store_bytes": 12,
+                                 "spill_load_bytes": 16,
+                                 "smem_static_bytes": 4096}
+    assert chip_smoke.flash_entry("_Z6kernelv") is None
+
+
+def test_chip_smoke_forward_cases_cover_every_tile_edge():
+    """FWD_CASES holds, at both head dims and under both masks, a square
+    case at every edge of the forward's tiles (64-row warpgroup tiles,
+    128-row q blocks and K/V tiles: one short, on, one past), GQA groups of
+    1, 4 and 8, sq != sk under each mask, and the main paths' shapes."""
+    cases = chip_smoke.FWD_CASES
+    square = {(s, d, causal) for _, _, _, s, sk, d, causal in cases
+              if s == sk}
+    for edge in (64, 128, 256):
+        for s in (edge - 1, edge, edge + 1):
+            for d in (64, 128):
+                for causal in (True, False):
+                    assert (s, d, causal) in square, (s, d, causal)
+    assert {(1, d, c) for d in (64, 128) for c in (True, False)} <= square
+    assert {h // kvh for _, h, kvh, *_ in cases} >= {1, 4, 8}
+    for causal in (True, False):
+        assert any(sq < sk and c == causal for *_, sq, sk, _, c in cases)
+        assert any(sq > sk and c == causal for *_, sq, sk, _, c in cases)
+    assert (1, 32, 8, 2048, 2048, 128, True) in cases       # llama3-8b
+    assert (2, 16, 16, 2048, 2048, 128, True) in cases      # training
 
 
 def test_every_kernel_source_is_listed():

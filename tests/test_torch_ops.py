@@ -109,23 +109,35 @@ def test_apply_rope_matches_jax(dtype):
 
 
 # ------------------------------------------------------------ attention
-def _qkv(seed, b, h, kvh, s, d):
+def _qkv(seed, b, h, kvh, s, d, sk=None):
+    """q (b, h, s, d) and k/v (b, kvh, sk, d), sk defaulting to s."""
+    sk = s if sk is None else sk
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, s, d)).astype(np.float32)
-    k = rng.standard_normal((b, kvh, s, d)).astype(np.float32)
-    v = rng.standard_normal((b, kvh, s, d)).astype(np.float32)
+    k = rng.standard_normal((b, kvh, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, kvh, sk, d)).astype(np.float32)
     return q, k, v
 
 
-# (h, kvh, s): MHA on a block multiple, GQA, and seq 80 (no multiple of
-# the 32 block: tail K columns masked, tail V rows zeroed on the JAX side)
-ATTN_CASES = [(4, 4, 64), (4, 2, 64), (4, 2, 80), (4, 1, 80)]
+# (h, kvh, sq, sk, head_dim): MHA on a block multiple, GQA, and seq 80 (no
+# multiple of the 32 block: tail K columns masked, tail V rows zeroed on
+# the JAX side); then sq != sk both ways (the causal mask's top-left
+# alignment, q row i sees keys j <= i, and a ragged tail lse), and head_dim
+# 64 with a GQA group of 8 at s 65.
+ATTN_CASES = [pytest.param(4, 4, 64, 64, 32, id="4-4-64"),
+              pytest.param(4, 2, 64, 64, 32, id="4-2-64"),
+              pytest.param(4, 2, 80, 80, 32, id="4-2-80"),
+              pytest.param(4, 1, 80, 80, 32, id="4-1-80"),
+              pytest.param(4, 2, 40, 100, 32, id="4-2-sq40-sk100"),
+              pytest.param(4, 2, 100, 40, 32, id="4-2-sq100-sk40"),
+              pytest.param(8, 1, 65, 65, 64, id="8-1-65-d64")]
+LSE_CASES = ATTN_CASES[1:3] + ATTN_CASES[4:]
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h,kvh,s", ATTN_CASES)
-def test_flash_attention_matches_jax_kernel(h, kvh, s, causal):
-    q, k, v = _qkv(s + h + kvh, 1, h, kvh, s, 32)
+@pytest.mark.parametrize("h,kvh,s,sk,d", ATTN_CASES)
+def test_flash_attention_matches_jax_kernel(h, kvh, s, sk, d, causal):
+    q, k, v = _qkv(s + h + kvh, 1, h, kvh, s, d, sk)
     want = jattn.flash_attention_kernel(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         block_q=32, block_k=32)
@@ -139,9 +151,9 @@ def test_flash_attention_matches_jax_kernel(h, kvh, s, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h,kvh,s", ATTN_CASES[1:3])
-def test_flash_attention_lse_matches_jax(h, kvh, s, causal):
-    q, k, v = _qkv(3 * s + kvh, 2, h, kvh, s, 32)
+@pytest.mark.parametrize("h,kvh,s,sk,d", LSE_CASES)
+def test_flash_attention_lse_matches_jax(h, kvh, s, sk, d, causal):
+    q, k, v = _qkv(3 * s + kvh, 2, h, kvh, s, d, sk)
     jo, jl = jattn.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         block_q=32, block_k=32, return_lse=True)
