@@ -29,14 +29,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      phase, and one prompt's prefill logits must agree with
      Transformer.apply; then torch.profiler splits an admission step
      and the decode steps after it by kernel, and gives the decode
-     step's device idle share;
+     step's device idle share; then LLMEngine, the serving deployment
+     class, on the same weights: the same requests streamed over its
+     push token stream must give EngineCore's greedy tokens (consumer
+     TTFT and TPOT beside EngineCore's decode p50), a wrong incarnation
+     is fenced, a drain mid-generation hands back its descriptor, and an
+     engine without a stream serves through next_tokens;
   6. train: the model of the repo's `bench.py` (~0.95 B params, bf16,
      seq 2048, batch 2) at full width and depth through
      `ray_tpu_torch.bench.train_step` (loss, backward, AdamW): 2 warm-up
      and 20 timed steps on a fixed batch (step time, and the host's
      time to enqueue a step), finite and falling loss, the launch counts
-     of every kernel per step, one `remat=True` step, and a
-     torch.profiler split of one step with its device idle share.
+     of every kernel per step, a torch.profiler split of one step with
+     its device idle share; then loss and backward under remat, full
+     against save_attn (launch counts, bitwise equal loss and grads,
+     each step's time).
 The last three lines are the card (`nvidia-smi`), the kernels as JSON,
 and `{"ok": true, "device": {...}}`.
 """
@@ -47,6 +54,8 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
+import queue
 import re
 import statistics
 import subprocess
@@ -58,11 +67,14 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch import bench
+from ray_tpu_torch._private.config import CONFIG
+from ray_tpu_torch._private.metrics_plane import serving_metrics
 from ray_tpu_torch.models import decode
 from ray_tpu_torch.models.config import llama3_8b
 from ray_tpu_torch.models.convert import init_for_serving
 from ray_tpu_torch.models.transformer import Transformer
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import attention as attention_mod
 from ray_tpu_torch.ops.attention import (_bwd_kernels, _flash_bwd_cuda,
                                          _flash_bwd_launch, _kernel,
                                          flash_attention,
@@ -70,8 +82,9 @@ from ray_tpu_torch.ops.attention import (_bwd_kernels, _flash_bwd_cuda,
                                          flash_attention_reference,
                                          mha_reference)
 from ray_tpu_torch.ops.norms import rms_norm, rms_norm_reference
-from ray_tpu_torch.serve.llm.engine import FINISH_LENGTH, FINISH_STOP, \
-    EngineCore
+from ray_tpu_torch.serve.llm import LLMEngine, STREAM_STATS, stream_client
+from ray_tpu_torch.serve.llm.engine import (FINISH_DRAINED, FINISH_LENGTH,
+                                            FINISH_STOP, EngineCore)
 from ray_tpu_torch.serve.llm.kv_cache import pages_needed
 
 # Published peaks (NVIDIA data sheets, dense): bytes/s of device memory,
@@ -862,7 +875,7 @@ def serve(dev) -> dict:
     decode_p50 = statistics.median(decode_ms)
     log("serve profile: " + json.dumps(profile_steps(core, prompts,
                                                      decode_p50)))
-    return {
+    out = {
         "requests": len(prompts), "steps": steps, "wall_s": wall,
         "generated_tokens": generated, "tokens_per_s": generated / wall,
         "prefill_ms": [(n_, round(ms, 3)) for n_, ms in prefill_ms],
@@ -871,6 +884,224 @@ def serve(dev) -> dict:
         "logits_max_abs_err": err,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
+    del core, cache                  # the engine below makes its own cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["llm_engine"] = serve_engine(dev, cfg, params, prompts, new_tokens,
+                                     tokens, done, decode_p50)
+    return out
+
+
+def get_frame(sink, eng, deadline: float, what: str) -> dict:
+    """Next frame from a stream sink before `deadline`. Fails the phase
+    on a timeout (naming whether the engine's step thread is alive), a
+    lost connection, an unknown request or an error frame."""
+    try:
+        msg = sink.get(timeout=max(0.0, deadline - time.monotonic()))
+    except queue.Empty:
+        raise RuntimeError(f"{what}: no frame before the deadline; step "
+                           f"thread alive: {eng._thread.is_alive()}") \
+            from None
+    if msg.get("type") != "llm_tok" or msg.get("unknown") or msg.get("err"):
+        raise RuntimeError(f"{what}: stream frame {msg}")
+    return msg
+
+
+def accept_frame(msg: dict, got: list, what: str) -> int:
+    """Append a frame's new tokens to `got`, trimmed by its `base`;
+    returns how many were new. A frame that starts past the tokens
+    already read fails the phase."""
+    if msg["base"] > len(got):
+        raise RuntimeError(f"{what}: frame at base {msg['base']} after "
+                           f"{len(got)} tokens")
+    fresh = msg["toks"][len(got) - msg["base"]:]
+    got.extend(fresh)
+    return len(fresh)
+
+
+def serve_engine(dev, cfg, params, prompts, new_tokens, want, reasons,
+                 decode_p50: float) -> dict:
+    """LLMEngine, the serving deployment class, on the EngineCore phase's
+    llama3-8b weights at full width and depth. Every wait has a deadline.
+      * the same five requests through `generate`, each consumed over the
+        push stream; the greedy tokens must equal the core phase's, and
+        the flash forward must have launched once a layer a prefill;
+        consumer-side TTFT (generate to the first token frame) and TPOT
+        (the gap between token frames, per token);
+      * a subscriber with a wrong incarnation: frames fenced, none
+        delivered;
+      * `drain` of a long request mid-generation: a terminal `drained`
+        frame, and a descriptor carrying the tokens emitted so far;
+      * with RAY_TPU_LLM_STREAM=0, an engine without a stream serving one
+        request through `next_tokens`."""
+    deadline_s = 120.0
+    eng = LLMEngine(model=cfg, weights=params, device=dev, num_pages=1024,
+                    page_size=16, max_batch=DECODE_ROWS)
+    client = stream_client()
+    try:
+        # warm-up outside the counted window: the step thread's first
+        # cuBLAS calls
+        eng.generate(prompts["r0"], max_tokens=2, rid="warm")
+        poll_tokens(eng, "warm", time.monotonic() + deadline_s)
+        hist0 = serving_counts()
+        stats0 = dict(STREAM_STATS)
+        admitted0 = eng.core.counters["admitted"]
+        sink = queue.Queue()      # one sink for every request: frames
+        t_submit, got, last_t = {}, {}, {}     # carry their rid
+        ttft, tpot, finished = [], [], {}
+        torch.cuda.synchronize()
+        reset_counts()
+        for rid in want:
+            t_submit[rid] = time.perf_counter()
+            acc = eng.generate(prompts[rid], max_tokens=new_tokens[rid],
+                               rid=rid)
+            if not client.subscribe(acc["stream"], rid, acc["incarnation"],
+                                    0, 0, sink):
+                raise RuntimeError(f"subscribe {rid} refused")
+            got[rid] = []
+        deadline = time.monotonic() + deadline_s
+        while len(finished) < len(want):
+            msg = get_frame(sink, eng, deadline, "llm_engine stream")
+            now, rid = time.perf_counter(), msg["req"]
+            fresh = accept_frame(msg, got[rid], f"llm_engine stream {rid}")
+            if fresh:
+                if len(got[rid]) == fresh:
+                    ttft.append((now - t_submit[rid]) * 1e3)
+                else:
+                    gap = (now - last_t[rid]) * 1e3 / fresh
+                    tpot.extend([gap] * fresh)
+                last_t[rid] = now
+            if msg["done"]:
+                finished[rid] = msg["reason"]
+        launches = kernel_counts()
+        admitted = eng.core.counters["admitted"] - admitted0
+        hist = {k: v - hist0[k] for k, v in serving_counts().items()}
+        stats = {k: v - stats0[k] for k, v in STREAM_STATS.items()}
+        if got != {rid: want[rid] for rid in got} or finished != {
+                rid: reasons[rid] for rid in finished}:
+            raise AssertionError(
+                "llm_engine streamed tokens differ from EngineCore's: " +
+                json.dumps({rid: [got[rid], want[rid]] for rid in got
+                            if got[rid] != want[rid]}))
+        per_pass = 2 * cfg.n_layers + 1
+        if (admitted != len(want)
+                or launches["flash_fwd"] != cfg.n_layers * admitted
+                or launches["flash_dkdv"] or launches["flash_dq"]
+                or launches["rms_norm"] % per_pass
+                or launches["rms_norm"] // per_pass <= admitted):
+            raise AssertionError(f"llm_engine launches {launches} for "
+                                 f"{admitted} admissions")
+        generated = sum(len(t) for t in got.values())
+        if hist["tokens"] != generated or hist["ttft"] != len(want) \
+                or hist["tpot"] != generated - len(want):
+            raise AssertionError(f"serving histograms counted {hist} for "
+                                 f"{generated} tokens of {len(want)} "
+                                 f"requests")
+
+        # zombie fence: a subscriber expecting another incarnation
+        z0 = STREAM_STATS["zombie_dropped"]
+        acc = eng.generate(prompts["r0"], max_tokens=4, rid="zombie")
+        zombie = queue.Queue()
+        if not client.subscribe(acc["stream"], "zombie", "deadbeef", 0, 0,
+                                zombie):
+            raise RuntimeError("subscribe zombie refused")
+        poll_tokens(eng, "zombie", time.monotonic() + deadline_s)
+        deadline = time.monotonic() + deadline_s
+        while STREAM_STATS["zombie_dropped"] == z0:
+            if time.monotonic() > deadline:
+                raise RuntimeError("no zombie frame was fenced")
+            time.sleep(0.01)
+        if not zombie.empty():
+            raise AssertionError("a fenced frame reached the consumer")
+        fenced = STREAM_STATS["zombie_dropped"] - z0
+
+        # drain a long request mid-generation
+        acc = eng.generate(prompts["r2"], max_tokens=200, rid="drain")
+        dsink, dtoks = queue.Queue(), []
+        if not client.subscribe(acc["stream"], "drain", acc["incarnation"],
+                                0, 0, dsink):
+            raise RuntimeError("subscribe drain refused")
+        deadline = time.monotonic() + deadline_s
+        while len(dtoks) < 3:
+            msg = get_frame(dsink, eng, deadline, "drain")
+            accept_frame(msg, dtoks, "drain")
+        descs = eng.drain()
+        while not msg["done"]:
+            msg = get_frame(dsink, eng, deadline, "drain")
+            accept_frame(msg, dtoks, "drain")
+        emitted = descs[0]["emitted"] if descs else []
+        n = min(len(emitted), len(want["r2"]))
+        if ([d["rid"] for d in descs] != ["drain"]
+                or msg["reason"] != FINISH_DRAINED
+                or dtoks != emitted or not 3 <= len(emitted) < 200
+                or emitted[:n] != want["r2"][:n]
+                or eng.core.has_work
+                or eng.core.alloc.free_pages != eng.core.num_pages):
+            raise AssertionError(f"drain: descriptors {descs}, last frame "
+                                 f"{msg}, {len(dtoks)} tokens streamed")
+    finally:
+        eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the polled path, on an engine without a stream
+    os.environ["RAY_TPU_LLM_STREAM"] = "0"
+    CONFIG.reload()
+    try:
+        eng = LLMEngine(model=cfg, weights=params, device=dev, num_pages=64,
+                        page_size=16, max_batch=DECODE_ROWS)
+        try:
+            acc = eng.generate(prompts["r1"], max_tokens=new_tokens["r1"],
+                               rid="polled")
+            polled = poll_tokens(eng, "polled",
+                                 time.monotonic() + deadline_s)
+            if acc["stream"] is not None or polled != want["r1"]:
+                raise AssertionError(f"polled engine: stream "
+                                     f"{acc['stream']}, tokens {polled} vs "
+                                     f"{want['r1']}")
+        finally:
+            eng.close()
+    finally:
+        del os.environ["RAY_TPU_LLM_STREAM"]
+        CONFIG.reload()
+    return {
+        "requests": len(want), "generated_tokens": generated,
+        "tokens_equal_engine_core": True, "launches": launches,
+        "consumer_ttft_ms_p50": statistics.median(ttft),
+        "consumer_tpot_ms_p50": statistics.median(tpot),
+        "engine_core_decode_step_ms_p50": decode_p50,
+        "consumer_ttft_ms": [round(t, 3) for t in ttft],
+        "frames_out": stats["frames_out"], "tokens_in": stats["tokens_in"],
+        "frames_in": stats["frames_in"], "histogram_counts": hist,
+        "zombie_dropped": fenced, "drained_after_tokens": len(emitted),
+        "polled_tokens_equal": True,
+    }
+
+
+def poll_tokens(eng, rid: str, deadline: float) -> list:
+    """rid's tokens through `next_tokens`, before `deadline`."""
+    out, cursor = [], 0
+    while time.monotonic() < deadline:
+        r = eng.next_tokens(rid, cursor=cursor, wait_s=1.0)
+        if r["err"]:
+            raise RuntimeError(f"{rid}: {r['err']}")
+        out.extend(r["toks"])
+        cursor = r["cursor"]
+        if r["done"]:
+            return out
+    raise RuntimeError(f"{rid}: not done before the deadline; step thread "
+                       f"alive: {eng._thread.is_alive()}")
+
+
+def serving_counts() -> dict:
+    """Observations in the serving histograms, and the token counter."""
+    m = serving_metrics()
+    return {"ttft": sum(v[1] for v in m["ttft"].snapshot()["series"]
+                        .values()),
+            "tpot": sum(v[1] for v in m["tpot"].snapshot()["series"]
+                        .values()),
+            "tokens": sum(m["tokens"].snapshot()["series"].values())}
 
 
 def step_profile(model, params, opt, batch, step_p50: float) -> dict:
@@ -887,6 +1118,228 @@ def step_profile(model, params, opt, batch, step_p50: float) -> dict:
             else max(0.0, 1 - busy / step_p50))
     return {"device_ms": busy, "idle_share": idle, "by_class_ms": classes,
             "top": top}
+
+
+def loss_and_grads(model, params, batch) -> tuple:
+    leaves = bench.leaves(params)
+    loss = model.loss(params, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def remat_steps(cfg, params, batch, repeats: int = 5) -> dict:
+    """Loss and backward (no update) of the bench model under remat:
+    `remat_policy="full"` reruns every layer's forward, flash kernel
+    included, in the backward; `"save_attn"` keeps the kernel's O and
+    lse across the checkpoint, so it launches once a layer. Launch
+    counts of each, loss and grads of the two bitwise equal (both
+    kernels are deterministic: the recomputed O and lse are the saved
+    ones), and each step's time, host clock ending in a synchronize,
+    taken in turns (full, save_attn, save_attn, full) `repeats` times,
+    with the host's time to enqueue it (a step whose enqueue takes as
+    long as the step is held back by the host)."""
+    models = {p: Transformer(dataclasses.replace(cfg, remat=True,
+                                                 remat_policy=p))
+              for p in ("full", "save_attn")}
+    runs, measured, want = {}, {}, {
+        "full": {"flash_fwd": 2 * cfg.n_layers, "flash_dkdv": cfg.n_layers,
+                 "flash_dq": cfg.n_layers, "rms_norm": 4 * cfg.n_layers + 1},
+        "save_attn": {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
+                      "flash_dq": cfg.n_layers,
+                      "rms_norm": 4 * cfg.n_layers + 1}}
+    for policy, model in models.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        runs[policy] = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        measured[policy] = kernel_counts()
+        if measured[policy] != want[policy]:
+            raise AssertionError(f"remat {policy} step: launches "
+                                 f"{measured[policy]}, expected "
+                                 f"{want[policy]}")
+    (loss, grads), (saved_loss, saved_grads) = runs["full"], \
+        runs["save_attn"]
+    if not (torch.isfinite(loss) and torch.equal(loss, saved_loss)):
+        raise AssertionError(f"remat losses: full {loss.item()}, save_attn "
+                             f"{saved_loss.item()}")
+    differ = [i for i, (a, b) in enumerate(zip(grads, saved_grads))
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"save_attn grads differ from full remat's in "
+                             f"{len(differ)} of {len(grads)} leaves")
+    del runs, grads, saved_grads
+    step_ms = {"full": [], "save_attn": []}
+    host_ms = {"full": [], "save_attn": []}
+    for _ in range(repeats):
+        for policy in ("full", "save_attn", "save_attn", "full"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss_and_grads(models[policy], params, batch)
+            host_ms[policy].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            step_ms[policy].append((time.perf_counter() - t0) * 1e3)
+    p50 = {k: statistics.median(v) for k, v in step_ms.items()}
+    host_p50 = {k: statistics.median(v) for k, v in host_ms.items()}
+    log(f"remat steps (loss and backward, no update): full p50 "
+        f"{p50['full']:.3f} ms, save_attn p50 {p50['save_attn']:.3f} ms "
+        f"({p50['full'] - p50['save_attn']:.3f} ms less); host enqueue "
+        f"p50 {host_p50}; launches {measured}; loss {loss.item():.6f} both, "
+        f"grads bitwise equal over {len(bench.leaves(params))} leaves")
+    return {"loss": loss.item(), "launches": measured,
+            "grads_bitwise_equal": True,
+            "step_ms_p50": p50, "saved_ms": p50["full"] - p50["save_attn"],
+            "host_ms_p50": host_p50,
+            "step_ms": {k: [round(t, 3) for t in v]
+                        for k, v in step_ms.items()}}
+
+
+def remat_host_split(cfg, params, batch, repeats: int = 5) -> dict:
+    """Not run by `main`. Host enqueue and step time of a loss-and-backward
+    step of the bench model under remat, in turns: `"full"`,
+    `"save_attn"` (the record-and-replay scope of `attn_remat_policy`),
+    and `"save_attn"` by selective checkpointing (`"dispatch_mode"`: a
+    `TorchDispatchMode` that sees every op of the region and saves the
+    flash op's outputs, the route the scope replaced). Each variant's
+    launches are counted, and one step of each runs under torch.profiler
+    (CPU): ops dispatched and their summed self time."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    import ray_tpu_torch.models.transformer as tmod
+
+    def must_save_flash(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE
+                if op is torch.ops.ray_tpu_torch.flash_fwd.default
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    def dispatch_mode_policy():
+        return lambda: create_selective_checkpoint_contexts(must_save_flash)
+
+    models = {p: Transformer(dataclasses.replace(cfg, remat=True,
+                                                 remat_policy=p))
+              for p in ("full", "save_attn")}
+    models["dispatch_mode"] = models["save_attn"]
+
+    def step(name):
+        if name == "dispatch_mode":
+            tmod.attn_remat_policy = dispatch_mode_policy
+        try:
+            return loss_and_grads(models[name], params, batch)
+        finally:
+            tmod.attn_remat_policy = attention_mod.attn_remat_policy
+
+    launches, prof = {}, {}
+    for name in models:
+        torch.cuda.synchronize()
+        reset_counts()
+        step(name)
+        torch.cuda.synchronize()
+        launches[name] = kernel_counts()
+        with profile(activities=[ProfilerActivity.CPU]) as p:
+            step(name)
+            torch.cuda.synchronize()
+        events = p.key_averages()
+        prof[name] = {
+            "ops": sum(e.count for e in events),
+            "op_self_cpu_ms": sum(e.self_cpu_time_total for e in events)
+            / 1e3}
+    step_ms = {n: [] for n in models}
+    host_ms = {n: [] for n in models}
+    for _ in range(repeats):
+        for name in ("full", "save_attn", "dispatch_mode", "dispatch_mode",
+                     "save_attn", "full"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(name)
+            host_ms[name].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3)
+    out = {"launches": launches, "profile": prof,
+           "step_ms_p50": {n: statistics.median(v)
+                           for n, v in step_ms.items()},
+           "host_ms_p50": {n: statistics.median(v)
+                           for n, v in host_ms.items()}}
+    log("remat host split: " + json.dumps(out))
+    return out
+
+
+def flash_call_host(dev, n: int = 200) -> dict:
+    """Not run by `main`. Host time to enqueue one forward and backward of
+    flash attention at the training shape, in turns: `flash_attention`
+    (the op on detached inputs, then `_AttnFromSaved`), the op through its
+    own autograd rule, and `_AttnFromSaved` on a direct launch (the route
+    of an autograd Function around the ctypes launch, as the port had
+    before the op). Each call starts after a synchronize; p50 in
+    microseconds."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (torch.randn(TRAIN_B, TRAIN_HEADS, TRAIN_S, 128,
+                               generator=gen, device=dev).bfloat16()
+                   for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    scale = 128 ** -0.5
+    routes = {
+        "flash_attention": lambda: flash_attention(q, k, v),
+        "op_autograd": lambda: attention_mod.flash_fwd(
+            q, k, v, True, scale)[0],
+        "function": lambda: attention_mod._AttnFromSaved.apply(
+            q, k, v, *attention_mod._flash_fwd_cuda(q, k, v, True, scale),
+            True, scale)}
+    us = {name: [] for name in routes}
+    order = list(routes) + list(routes)[::-1]
+    for _ in range(n):
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.autograd.grad(routes[name](), (q, k, v), do)
+            us[name].append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    out = {name: statistics.median(v) for name, v in us.items()}
+    log("flash call host us p50: " + json.dumps(out))
+    return out
+
+
+# The plain training step of the training phase, for `train_ab`: it uses
+# only the bench API every slice of the port has, so it runs in any tree.
+_TRAIN_AB = """
+import json, statistics, time, torch
+from ray_tpu_torch import bench
+from ray_tpu_torch.models.transformer import Transformer
+dev = torch.device("cuda", 0)
+cfg = bench.bench_config()
+model = Transformer(cfg)
+params = model.init(0, device=dev)
+opt = bench.make_optimizer(params)
+batch = bench.make_batch(cfg, %d, %d, dev)
+for _ in range(%d):
+    bench.train_step(model, params, opt, batch).item()
+step, host = [], []
+for _ in range(%d):
+    t0 = time.perf_counter()
+    loss = bench.train_step(model, params, opt, batch)
+    host.append((time.perf_counter() - t0) * 1e3)
+    loss.item()
+    step.append((time.perf_counter() - t0) * 1e3)
+print(json.dumps({"step_ms_p50": statistics.median(step),
+                  "host_ms_p50": statistics.median(host)}))
+"""
+
+
+def train_ab(trees) -> list:
+    """Not run by `main`. The training phase's plain step (2 warm-up, 20
+    timed) in each checkout of `trees`, in the order given (for example
+    parent, change, change, parent), each in a process of its own that
+    imports the port from that checkout: step p50 and host enqueue p50."""
+    code = _TRAIN_AB % (TRAIN_B, TRAIN_S, TRAIN_WARMUP, TRAIN_STEPS)
+    out = []
+    for tree in trees:
+        r = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode:
+            raise RuntimeError(f"train_ab {tree}: {r.stderr[-2000:]}")
+        out.append({"tree": str(tree),
+                    **json.loads(r.stdout.strip().splitlines()[-1])})
+        log("train_ab: " + json.dumps(out[-1]))
+    return out
 
 
 def train(dev, peaks) -> dict:
@@ -927,17 +1380,7 @@ def train(dev, peaks) -> dict:
     mfu = tok_per_s * cfg.flops_per_token() / bench.detect_peak(dev)
     profile = step_profile(model, params, opt, batch, p50)
 
-    # remat: every layer's forward, flash kernel included, runs again in
-    # the backward
-    reset_counts()
-    remat = Transformer(dataclasses.replace(cfg, remat=True))
-    remat_loss = bench.train_step(remat, params, opt, batch).item()
-    remat_counts = kernel_counts()
-    if (remat_counts["flash_fwd"] != 2 * cfg.n_layers
-            or remat_counts["flash_dkdv"] != cfg.n_layers
-            or not np.isfinite(remat_loss)):
-        raise AssertionError(f"remat step: launches {remat_counts}, loss "
-                             f"{remat_loss}")
+    remat = remat_steps(cfg, params, batch)
     return {
         "params": cfg.num_params(), "batch": TRAIN_B, "seq": TRAIN_S,
         "steps": TRAIN_STEPS, "losses": losses,
@@ -950,7 +1393,7 @@ def train(dev, peaks) -> dict:
         "flops_per_token": cfg.flops_per_token(),
         "launches": launches, "launches_per_step": per_step,
         "peak_mem_gib": peak_gib, "profile": profile,
-        "remat_step": {"loss": remat_loss, "launches": remat_counts},
+        "remat_steps": remat,
     }
 
 
@@ -1008,11 +1451,27 @@ def main() -> None:
     log("serve: " + json.dumps(served))
     gc.collect()
     torch.cuda.empty_cache()
+    # every engine is closed: none of its threads may still hold the
+    # weights or a KV cache
+    left = torch.cuda.memory_allocated() / 2 ** 30
+    if left > 1.0:
+        raise AssertionError(f"serving left {left:.2f} GiB allocated")
     trained = train(dev, peaks)
     log("train: " + json.dumps(trained))
+    # launches on each main path, each read just after that path ran
+    paths = {"engine_core": served["launches"],
+             "llm_engine": served["llm_engine"]["launches"],
+             "train_20_steps": trained["launches"],
+             "train_remat_full_step":
+                 trained["remat_steps"]["launches"]["full"],
+             "train_remat_save_attn_step":
+                 trained["remat_steps"]["launches"]["save_attn"]}
     for name in ("flash_fwd", "flash_dkdv", "flash_dq", "rms_norm"):
-        if served["launches"][name] + trained["launches"][name] == 0:
+        if sum(p[name] for p in paths.values()) == 0:
             raise AssertionError(f"{name} never launched on a main path")
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items()}
 
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
@@ -1020,6 +1479,7 @@ def main() -> None:
          "replaces": "ray_tpu/ops/attention.py:69",
          "launches": served["launches"]["flash_fwd"],
          "launches_train": trained["launches"]["flash_fwd"],
+         "launches_by_path": by_path("flash_fwd"),
          "max_abs_err": flash_err, "lse_max_abs_err": lse_err,
          "tolerance": {"o": TOL["flash_o"], "lse": TOL["flash_lse"]},
          **flash, "kernel_ms": flash["ms"], "s4096": flash_4k,
@@ -1028,6 +1488,7 @@ def main() -> None:
            "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
            "replaces": f"ray_tpu/ops/attention.py:{line}",
            "launches": trained["launches"][f"flash_{kind}"],
+           "launches_by_path": by_path(f"flash_{kind}"),
            "max_abs_err": bwd_err[kind][0],
            "max_err_rel_to_max": bwd_err[kind][1],
            "tolerance": {"rel_to_max": TOL["flash_bwd_rel_to_max"]},
@@ -1040,6 +1501,7 @@ def main() -> None:
          "replaces": "ray_tpu/ops/norms.py:34",
          "launches": served["launches"]["rms_norm"],
          "launches_train": trained["launches"]["rms_norm"],
+         "launches_by_path": by_path("rms_norm"),
          "max_abs_err": rms_err,
          "tolerance": {"bf16": TOL["rms_bf16"], "f32": TOL["rms_f32"]},
          **rms_pre, "kernel_ms": rms_pre["ms"], "decode": rms_dec,

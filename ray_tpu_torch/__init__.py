@@ -5,7 +5,9 @@ it, one slice at a time, and imports nothing of it (nor JAX). The first
 slice is the serving path: the Llama-family decoder, its paged
 prefill/decode forwards and the continuous-batching `EngineCore`. The
 second is the training path: `Transformer.loss`, its backward and an
-AdamW step (`ray_tpu_torch.bench`). Their kernels are written by hand
+AdamW step (`ray_tpu_torch.bench`). Later slices added `save_attn` remat
+and `LLMEngine`, the serving deployment class, with its push token
+stream over the port's own framed wire (`_private/`). Their kernels are written by hand
 in CUDA C++ for `sm_90a` (`ops/csrc/`): the flash-attention forward, its
 dK/dV and dQ backward, and the RMSNorm forward.
 

@@ -22,10 +22,10 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ray_tpu_torch.models.config import TransformerConfig
-from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.ops.attention import attn_remat_policy, flash_attention
 from ray_tpu_torch.ops.dispatch import resolve_device
 from ray_tpu_torch.ops.losses import chunked_lm_loss, softmax_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
@@ -108,19 +108,6 @@ class Transformer(nn.Module):
         # gather, then cast: the same values as casting the table first
         return table[tokens].to(self.config.activation_dtype)
 
-    def _attention(self, q, k, v):
-        c = self.config
-        if c.remat and c.remat_policy == "save_attn" and q.is_cuda:
-            raise NotImplementedError(
-                "remat_policy='save_attn' on the card needs the flash "
-                "launch registered as a torch.library custom op, so that "
-                "selective checkpointing can save its O and lse (ROADMAP "
-                "queue 1, 'save_attn'); use remat_policy='full'")
-        # Off the card the plain path has no kernel to spare, and computes
-        # what full remat computes, as the JAX package's off-TPU branch.
-        return flash_attention(q, k, v, causal=True, block_q=c.attn_block_q,
-                               block_k=c.attn_block_k)
-
     def _layer(self, x: torch.Tensor, layer: Params, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
         c = self.config
@@ -134,8 +121,9 @@ class Transformer(nn.Module):
         v = (h @ layer["wv"].to(ad)).view(b, s, c.kv_heads, hd)
         q = apply_rope_cached(q, cos, sin)
         k = apply_rope_cached(k, cos, sin)
-        attn = self._attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2))
+        attn = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True,
+                               block_q=c.attn_block_q, block_k=c.attn_block_k)
         attn = attn.transpose(1, 2).reshape(b, s, c.n_heads * hd)
         x = x + attn @ layer["wo"].to(ad)
 
@@ -150,8 +138,11 @@ class Transformer(nn.Module):
 
         With `config.remat` each layer runs under
         `torch.utils.checkpoint` (non-reentrant) when a gradient is being
-        taken: its activations are recomputed in the backward, the
-        flash forward kernel included.
+        taken: its activations are recomputed in the backward. Under
+        `remat_policy="full"` that includes the flash forward kernel;
+        under `"save_attn"` the checkpoint keeps the kernel's O and lse
+        from the forward and replays them in the recompute
+        (`attn_remat_policy`), so each layer runs it once.
         """
         c = self.config
         b, s = tokens.shape
@@ -160,10 +151,12 @@ class Transformer(nn.Module):
         x = self._embed_lookup(params["embed"], tokens)
         cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
         remat = c.remat and torch.is_grad_enabled()
+        context_fn = (attn_remat_policy() if c.remat_policy == "save_attn"
+                      else noop_context_fn)
         for layer in params["layers"]:
             if remat:
                 x = checkpoint(self._layer, x, layer, cos, sin,
-                               use_reentrant=False)
+                               use_reentrant=False, context_fn=context_fn)
             else:
                 x = self._layer(x, layer, cos, sin)
         return rms_norm(x, params["final_norm"], c.norm_eps)

@@ -4,18 +4,34 @@ plain versions for the CPU.
 Port of `ray_tpu/ops/attention.py`. Layout (batch, heads, seq, head_dim);
 K/V may have fewer heads (GQA, kv heads divide q heads) and the kernels
 map q head h to kv head h // group without materialising a repeat.
-`flash_attention` runs through one `torch.autograd.Function` on both
-devices: its forward saves q, k, v, O and the row log-sum-exp, and its
-backward is the dK/dV and dQ kernels (`csrc/flash_bwd.cu`) on the card,
-`flash_attention_bwd_reference` on the CPU. The lse's cotangent is
-dropped, as `_flash_bwd_rule` drops it: the lse is a statistic, not a
-loss term.
+`flash_attention` splits attention as the JAX package splits it under
+`save_attn`, on every path: the `torch.library` custom op
+`ray_tpu_torch::flash_fwd` -> (O, lse) runs the forward on
+gradient-stopped inputs (the kernel on the card,
+`flash_attention_reference` on the CPU), and `_AttnFromSaved` (the JAX
+`_attn_from_saved`) is the only differentiable step: it saves q, k, v, O
+and the row log-sum-exp, and its backward is the dK/dV and dQ kernels
+(`csrc/flash_bwd.cu`) on the card, `flash_attention_bwd_reference` on
+the CPU. The lse's cotangent is dropped, as `_flash_bwd_rule` drops it:
+the lse is a statistic, not a loss term. The op also carries that
+backward as its own autograd rule, for callers that differentiate it
+directly; through the op's autograd wrapper a forward and backward cost
+more host time than through the Function (`PERF.md`).
+
+`attn_remat_policy()` is the checkpoint `context_fn` of
+`remat_policy="save_attn"`, the counterpart of the JAX
+`save_only_these_names("attn_out", "attn_lse")`: it keeps the op's O and
+lse from a region's forward and hands them back while its backward
+recomputes the region, so a rematerialised layer runs the forward kernel
+once. It is a plain record-and-replay scope, not a `TorchDispatchMode`,
+so the other ops of the region pay no host cost for it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -81,10 +97,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     say.
     """
     del block_q, block_k
+    on_cuda(q)              # raises for a device other than the card or CPU
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    out, lse = _Flash.apply(q, k, v, bool(causal), float(sm_scale))
+    causal, sm_scale = bool(causal), float(sm_scale)
+    saves = getattr(_scope, "saves", None)
+    out, lse = (_forward(q, k, v, causal, sm_scale) if saves is None
+                else saves.forward(q, k, v, causal, sm_scale))
+    out = _AttnFromSaved.apply(q, k, v, out, lse, causal, sm_scale)
     return (out, lse) if return_lse else out
+
+
+def _forward(q, k, v, causal: bool, sm_scale: float):
+    """(O, lse) from the op on gradient-stopped inputs."""
+    with torch.no_grad():
+        return flash_fwd(q.detach(), k.detach(), v.detach(), causal,
+                         sm_scale)
 
 
 # Launch counts of the three kernels: the forward, and the backward's
@@ -94,32 +122,131 @@ flash_attention.dkdv_launches = 0
 flash_attention.dq_launches = 0
 
 
-class _Flash(torch.autograd.Function):
-    """(out, lse) with the flash backward; lse's cotangent is dropped."""
+@torch.library.custom_op(
+    "ray_tpu_torch::flash_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float sm_scale) "
+           "-> (Tensor, Tensor)")
+def flash_fwd(q, k, v, causal, sm_scale):
+    """(O, lse) of causal or full attention; O is (b, h, sq, d) in q's
+    dtype laid out as (b, sq, h, d) memory, lse (b, h, sq) f32."""
+    return _flash_fwd_cuda(q, k, v, causal, sm_scale)
+
+
+def _out_like_kernel(q) -> torch.Tensor:
+    """An empty O as the kernel writes it: (b, s, h, d) memory, so the
+    caller's transpose back to (b, s, h*d) is a free view."""
+    b, h, sq, d = q.shape
+    return q.new_empty((b, sq, h, d)).transpose(1, 2)
+
+
+@flash_fwd.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, causal, sm_scale):
+    out, lse = flash_attention_reference(q, k, v, causal, sm_scale)
+    return _out_like_kernel(q).copy_(out), lse
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, sm_scale):
+    b, h, sq, _ = q.shape
+    return _out_like_kernel(q), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, causal, sm_scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_backward(ctx, do, _dlse):
+    return (*_flash_backward(ctx, do), None, None)
+
+
+def _flash_backward(ctx, do):
+    """(dq, dk, dv) from the saved q, k, v, O and lse."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if on_cuda(q):
+        if not _kernel_layout_ok(do):
+            do = do.contiguous()     # e.g. the expanded grad of a sum
+        return _flash_bwd_cuda(q, k, v, out, lse, do, ctx.causal,
+                               ctx.sm_scale)
+    return flash_attention_bwd_reference(q, k, v, out, lse, do, ctx.causal,
+                                         ctx.sm_scale)
+
+
+flash_fwd.register_autograd(_flash_fwd_backward,
+                            setup_context=_flash_fwd_setup)
+
+
+class _AttnFromSaved(torch.autograd.Function):
+    """O of a forward already run, as a function of q, k and v: saves q,
+    k, v, O and lse, and its backward is the flash backward (the JAX
+    `_attn_from_saved`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        if on_cuda(q):
-            out, lse = _flash_fwd_cuda(q, k, v, causal, sm_scale)
-        else:
-            out, lse = flash_attention_reference(q, k, v, causal, sm_scale)
+    def forward(ctx, q, k, v, out, lse, causal: bool, sm_scale: float):
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
-        ctx.mark_non_differentiable(lse)
-        return out, lse
+        return out.view_as(out)
 
     @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        if on_cuda(q):
-            if not _kernel_layout_ok(do):
-                do = do.contiguous()     # e.g. the expanded grad of a sum
-            dq, dk, dv = _flash_bwd_cuda(q, k, v, out, lse, do, ctx.causal,
-                                         ctx.sm_scale)
-        else:
-            dq, dk, dv = flash_attention_bwd_reference(
-                q, k, v, out, lse, do, ctx.causal, ctx.sm_scale)
-        return dq, dk, dv, None, None
+    def backward(ctx, do):
+        return (*_flash_backward(ctx, do), None, None, None, None)
+
+
+_scope = threading.local()      # .saves: the _AttnSaves being run, if any
+
+
+class _AttnSaves:
+    """The (O, lse) of each flash forward of one checkpointed region, in
+    order: recorded while the region's forward runs, handed back while its
+    backward recomputes it. Checkpoint keeps the recompute scope, and so
+    these, until the region's backward is done."""
+
+    def __init__(self):
+        self.saved: list = []
+        self.next: Optional[int] = None      # None while recording
+
+    def forward(self, q, k, v, causal: bool, sm_scale: float):
+        if self.next is None:
+            saved = _forward(q, k, v, causal, sm_scale)
+            self.saved.append(saved)
+            return saved
+        if self.next >= len(self.saved):
+            raise RuntimeError("save_attn recompute ran more flash forwards "
+                               "than its forward did")
+        saved = self.saved[self.next]
+        self.next += 1
+        return saved
+
+
+class _AttnScope:
+    """Makes `saves` the current thread's while it is entered; reusable,
+    since checkpoint enters its recompute scope once per recompute."""
+
+    def __init__(self, saves: _AttnSaves, replay: bool):
+        self.saves, self.replay = saves, replay
+
+    def __enter__(self):
+        if self.replay:
+            self.saves.next = 0
+        self.prev = getattr(_scope, "saves", None)
+        _scope.saves = self.saves
+
+    def __exit__(self, *exc):
+        _scope.saves = self.prev
+
+
+def attn_remat_policy():
+    """`context_fn` for `torch.utils.checkpoint.checkpoint`: the
+    checkpointed region keeps the flash forward's O and lse and
+    recomputes everything else, so its backward never reruns the forward
+    kernel. Counterpart of the JAX `attn_remat_policy()`."""
+    def context_fn():
+        saves = _AttnSaves()
+        return _AttnScope(saves, replay=False), _AttnScope(saves, replay=True)
+    return context_fn
 
 
 def flash_attention_reference(q, k, v, causal: bool = True,
@@ -226,10 +353,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     _check_kernel_inputs("flash kernel", q, k, v)
-    # O is written as (b, s, h, d) memory so the caller's transpose back
-    # to (b, s, h*d) is a free view.
-    out = torch.empty((b, sq, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _out_like_kernel(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if sq == 0:
         return out, lse

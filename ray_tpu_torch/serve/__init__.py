@@ -1,1 +1,2 @@
-"""Serving on the port: so far the LLM engine core (`serve.llm`)."""
+"""Serving on the port: so far the LLM engine and its token stream
+(`serve.llm`)."""

@@ -1,7 +1,7 @@
-"""Continuous-batching LLM engine core.
+"""Continuous-batching LLM engine: the core and the serving class.
 
-Port of `EngineCore` of `ray_tpu/serve/llm/engine.py`: the pure
-scheduler + model driver. Every `step()` first ADMITS waiting requests
+Port of `EngineCore` and `LLMEngine` of `ray_tpu/serve/llm/engine.py`.
+`EngineCore` is the pure scheduler + model driver. Every `step()` first ADMITS waiting requests
 (prefill into free KV pages) and then DECODES every in-flight sequence
 by one token, so a short request admitted mid-flight finishes while a
 long one is still generating (iteration-level scheduling). No threads;
@@ -11,22 +11,33 @@ The same admission, eviction, cancel, drain, stats and event dicts as
 the JAX core. What differs: a `device` (default: the card) in place of
 the mesh, direct calls in place of the jit caches, and numpy batches
 moved with `torch.as_tensor(..., device=...)`.
+
+`LLMEngine` wraps a core with a step thread, polled token buffers,
+drain, the TTFT/TPOT histograms and the push `TokenStreamServer`.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import uuid
 from collections import deque
+from collections.abc import Mapping
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ray_tpu_torch._private.config import CONFIG
+from ray_tpu_torch._private.metrics_plane import serving_metrics
 from ray_tpu_torch.models import decode as _dec
+from ray_tpu_torch.models.config import PRESETS, TransformerConfig
+from ray_tpu_torch.models.convert import init_for_serving
 from ray_tpu_torch.models.transformer import Transformer
 from ray_tpu_torch.ops.dispatch import resolve_device
-from ray_tpu_torch.serve.llm.kv_cache import PageAllocator, pages_needed
+from ray_tpu_torch.serve.llm.kv_cache import (PageAllocator,
+                                              pages_from_budget, pages_needed)
+from ray_tpu_torch.serve.llm.stream import TokenStreamServer
 
 FINISH_STOP = "stop"
 FINISH_LENGTH = "length"
@@ -318,3 +329,267 @@ class EngineCore:
                 "outstanding_tokens": self.outstanding_tokens(),
                 "queue_wait_p95": self.queue_wait_p95(),
                 **self.counters}
+
+
+class LLMEngine:
+    """Serve deployment class: one continuous-batching engine.
+
+    Port of `LLMEngine` of `ray_tpu/serve/llm/engine.py`, run in
+    process. `model` is a preset name, a TransformerConfig kwargs dict
+    or a config. `weights` is the params dict (e.g. `params_from_jax` or
+    `init_for_serving` output, already on `device`), or None to
+    initialise from `seed`. `device=None` is the card. A step thread
+    drives the core; tokens reach consumers over the push stream
+    (`stream.py`, subscribe at the `stream` address `generate` returns)
+    or through `next_tokens` polling.
+
+    Not yet: an ObjectRef for `weights` (the object plane) and a `mesh`
+    (the parallel layer), ROADMAP queue 1.
+    """
+
+    def __init__(self, model="tiny", weights=None, mesh=None,
+                 num_pages: int = 0, page_size: int = 0,
+                 max_batch: int = 0, kv_budget_bytes: int = 0,
+                 seed: int = 0, device=None):
+        if isinstance(model, str):
+            config = PRESETS[model]()
+        elif isinstance(model, dict):
+            config = TransformerConfig(**model)
+        else:
+            config = model
+        if mesh:
+            raise NotImplementedError(
+                "LLMEngine(mesh=...) needs the parallel layer, not ported "
+                "yet (ROADMAP queue 1)")
+        device = resolve_device(device)
+        page_size = int(page_size or CONFIG.llm_page_size)
+        max_batch = int(max_batch or CONFIG.llm_max_batch)
+        if not num_pages and kv_budget_bytes:
+            num_pages = pages_from_budget(config, page_size,
+                                          kv_budget_bytes)
+        if weights is None:
+            params = init_for_serving(Transformer(config), seed, device)
+        elif isinstance(weights, Mapping):
+            params = weights
+        else:
+            raise NotImplementedError(
+                f"LLMEngine takes the params dict or None as weights, got "
+                f"{type(weights).__name__}; an ObjectRef needs the object "
+                f"plane, not ported yet (ROADMAP queue 1)")
+        self.core = EngineCore(config, params, device=device,
+                               num_pages=num_pages, page_size=page_size,
+                               max_batch=max_batch)
+        self.incarnation = uuid.uuid4().hex[:8]
+        self._lock = threading.Lock()        # core + buffers
+        self._cond = threading.Condition(self._lock)
+        # rid -> {"toks": [...], "done", "reason", "err", "t_done",
+        #         "attempt", "submit_t", "last_tok_t"}
+        self._buf: Dict[str, dict] = {}
+        self._metrics = serving_metrics()
+        self._stream = None
+        if CONFIG.llm_stream:
+            self._stream = TokenStreamServer(self.incarnation,
+                                             self._backlog)
+        self._stop = threading.Event()
+        self._kick = threading.Event()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="llm-engine-step",
+                                        daemon=True)
+        self._thread.start()
+
+    # ---------------------------------------------------- step thread
+    def _loop(self) -> None:
+        try:
+            if self.core.device.type == "cuda":
+                # this thread's CUDA context, before its first cuBLAS call
+                torch.cuda.set_device(self.core.device)
+            while not self._stop.is_set():
+                with self._lock:
+                    busy = self.core.has_work
+                if not busy:
+                    self._kick.wait(0.05)
+                    self._kick.clear()
+                    continue
+                with self._lock:
+                    events = self.core.step()
+                    self._ingest(events)
+                delay = CONFIG.llm_step_delay_s
+                if delay > 0:               # chaos pacing, 0 in production
+                    time.sleep(delay)
+        except Exception as e:
+            self._fail(e)
+            raise
+
+    def _fail(self, exc: Exception) -> None:
+        """The step raised (e.g. a CUDA error): end every open request
+        with the error, so no poller or subscriber waits on a thread
+        that is gone."""
+        err = f"{type(exc).__name__}: {exc}"
+        now = time.monotonic()
+        events = []
+        with self._lock:
+            for rid, b in self._buf.items():
+                if not b["done"]:
+                    b.update(done=True, reason="error", err=err, t_done=now)
+                    events.append({"rid": rid, "token": None,
+                                   "seq": len(b["toks"]), "first": False,
+                                   "done": True, "reason": "error",
+                                   "err": err, "attempt": b["attempt"]})
+            self._cond.notify_all()
+        if self._stream is not None and events:
+            self._stream.publish(events)
+
+    def _ingest(self, events: List[dict]) -> None:
+        """Record step output into the polled buffers and wake parked
+        pollers; push to stream subscribers."""
+        now = time.monotonic()
+        for ev in events:
+            b = self._buf.get(ev["rid"])
+            if b is None:
+                continue
+            if ev["token"] is not None:
+                if not b["toks"] and self._metrics:
+                    self._metrics["ttft"].observe(now - b["submit_t"])
+                elif b["toks"] and self._metrics:
+                    self._metrics["tpot"].observe(now - b["last_tok_t"])
+                b["last_tok_t"] = now
+                b["toks"].append(ev["token"])
+                if self._metrics:
+                    self._metrics["tokens"].inc()
+            if ev["done"]:
+                b["done"] = True
+                b["reason"] = ev["reason"]
+                b["t_done"] = now
+        self._cond.notify_all()
+        self._sweep(now)
+        if self._stream is not None:
+            self._stream.publish(events)
+
+    def _sweep(self, now: float) -> None:     # holds self._lock
+        dead = [rid for rid, b in self._buf.items()
+                if b["done"] and now - b["t_done"] > 120.0]
+        for rid in dead:
+            self._buf.pop(rid, None)
+
+    def _backlog(self, rid: str, cursor: int) -> Optional[dict]:
+        """Stream-subscribe replay: everything from `cursor` on."""
+        with self._lock:
+            b = self._buf.get(rid)
+            if b is None:
+                return None
+            return {"rid": rid, "attempt": b["attempt"],
+                    "base": cursor, "toks": list(b["toks"][cursor:]),
+                    "done": b["done"], "reason": b["reason"],
+                    "err": b["err"]}
+
+    # ------------------------------------------------------ serve API
+    def ping(self):
+        return "pong"
+
+    def generate(self, prompt, max_tokens: int = 16, stop=(),
+                 rid: Optional[str] = None, attempt: int = 0) -> dict:
+        """Accept one generation; tokens arrive via the push stream
+        (subscribe at `stream` with `rid`) or next_tokens polling."""
+        submit_t = time.monotonic()
+        with self._lock:
+            rid = self.core.submit(prompt, max_tokens=max_tokens,
+                                   stop=stop, rid=rid, attempt=attempt,
+                                   submit_t=submit_t)
+            self._buf[rid] = {"toks": [], "done": False, "reason": None,
+                              "err": None, "t_done": 0.0,
+                              "attempt": int(attempt),
+                              "submit_t": submit_t, "last_tok_t": 0.0}
+        self._kick.set()
+        return {"rid": rid, "attempt": int(attempt),
+                "incarnation": self.incarnation,
+                "stream": (self._stream.addr if self._stream else None)}
+
+    def next_tokens(self, rid: str, cursor: int = 0,
+                    wait_s: Optional[float] = None,
+                    limit: int = 256) -> dict:
+        """Polled fallback (CONFIG.llm_stream=0): park up to wait_s for
+        tokens past `cursor`: bounded server-side waits instead of
+        client busy-polling."""
+        wait_s = CONFIG.llm_stream_wait_s if wait_s is None else wait_s
+        deadline = time.monotonic() + max(0.0, wait_s)
+        with self._cond:
+            while True:
+                b = self._buf.get(rid)
+                if b is None:
+                    raise RuntimeError(
+                        f"unknown request {rid!r} on this replica")
+                if len(b["toks"]) > cursor or b["done"]:
+                    toks = b["toks"][cursor:cursor + limit]
+                    return {"toks": toks, "cursor": cursor + len(toks),
+                            "done": (b["done"] and
+                                     cursor + len(toks) >= len(b["toks"])),
+                            "reason": b["reason"], "err": b["err"],
+                            "attempt": b["attempt"],
+                            "incarnation": self.incarnation}
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return {"toks": [], "cursor": cursor, "done": False,
+                            "reason": None, "err": None,
+                            "attempt": b["attempt"],
+                            "incarnation": self.incarnation}
+                self._cond.wait(remaining)
+
+    def cancel(self, rid: str) -> bool:
+        with self._lock:
+            self._buf.pop(rid, None)
+            return self.core.cancel(rid)
+
+    def drain(self) -> List[dict]:
+        """Stop admission and decode, return re-dispatchable in-flight
+        descriptors. Subscribers see a terminal 'drained' frame and fail
+        over; the descriptors carry emitted tokens so the survivor
+        resumes mid-generation."""
+        with self._lock:
+            descs = self.core.drain()
+            now = time.monotonic()
+            drained_events = []
+            for d in descs:
+                b = self._buf.get(d["rid"])
+                if b is not None:
+                    b["done"] = True
+                    b["reason"] = FINISH_DRAINED
+                    b["t_done"] = now
+                drained_events.append(
+                    {"rid": d["rid"], "token": None, "seq": 0,
+                     "first": False, "done": True,
+                     "reason": FINISH_DRAINED, "attempt": d["attempt"]})
+            self._cond.notify_all()
+        if self._stream is not None and drained_events:
+            self._stream.publish(drained_events)
+        return descs
+
+    def engine_stats(self) -> dict:
+        with self._lock:
+            st = self.core.stats()
+        st["incarnation"] = self.incarnation
+        st["stream"] = self._stream.addr if self._stream else None
+        return st
+
+    def __serve_stats__(self) -> dict:
+        """Merged into a replica's pushed report: the queue-latency p95
+        that latency-target autoscaling reads."""
+        with self._lock:
+            return {"queue_wait_p95": self.core.queue_wait_p95(),
+                    "outstanding_tokens": self.core.outstanding_tokens()}
+
+    def close(self):
+        """Stop the step thread (after its current step) and the
+        stream listener."""
+        self._stop.set()
+        self._kick.set()
+        if threading.current_thread() is not self._thread:
+            self._thread.join()
+        if self._stream is not None:
+            self._stream.close()
+
+    def __del__(self):
+        # The step thread holds the engine, so this runs only once that
+        # thread has ended: what may still be open is the listener.
+        stream = getattr(self, "_stream", None)
+        if stream is not None:
+            stream.close()

@@ -23,7 +23,7 @@ from ray_tpu_torch import bench
 from ray_tpu_torch.models.config import tiny
 from ray_tpu_torch.models.convert import cast_for_serving
 from ray_tpu_torch.models.transformer import Transformer
-from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import _build, attention
 from ray_tpu_torch.ops.attention import (_flash_bwd_cuda, flash_attention,
                                          flash_attention_bwd_reference,
                                          flash_attention_reference,
@@ -314,15 +314,105 @@ def test_gradient_flows_through_both_wrappers_on_the_card(dev):
         _assert_rel(g.cpu(), w, 5e-2)
 
 
+def _flash_op_layouts(q, k, v):
+    """(real, fake) (shape, stride, dtype) of the flash op's O and lse:
+    its kernel for q's device, and its fake under FakeTensorMode."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def layout(outs):
+        return [(tuple(t.shape), t.stride(), t.dtype) for t in outs]
+    real = layout(attention.flash_fwd(q, k, v, True, 0.125))
+    with FakeTensorMode() as mode:
+        fake = layout(attention.flash_fwd(
+            *(mode.from_tensor(t) for t in (q, k, v)), True, 0.125))
+    return real, fake
+
+
 @pytest.mark.cuda
-def test_save_attn_remat_refuses_on_the_card(dev):
-    cfg = dataclasses.replace(tiny(), d_model=256, n_heads=2, n_kv_heads=2,
-                              dtype="bfloat16", remat=True,
-                              remat_policy="save_attn")
-    params = Transformer(cfg).init(0, device=dev)
-    with pytest.raises(NotImplementedError, match="save_attn"):
-        Transformer(cfg).loss(params, {"tokens": torch.zeros(
-            1, 64, dtype=torch.long, device=dev)})
+@pytest.mark.parametrize("b,h,kvh,s,d", [(1, 32, 8, 300, 128),
+                                         (2, 4, 4, 64, 64)])
+def test_flash_op_fake_matches_the_kernel(dev, b, h, kvh, s, d):
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (torch.randn(b, n, s, d, generator=gen, device=dev)
+               .bfloat16() for n in (h, kvh, kvh))
+    real, fake = _flash_op_layouts(q, k, v)
+    assert real == fake
+
+
+@pytest.mark.cuda
+def test_save_attn_remat_on_the_card_keeps_the_forward(dev):
+    """A loss-and-backward step of a 2-layer bf16 model under remat:
+    full remat launches the flash forward twice a layer, save_attn once;
+    dK/dV and dQ once a layer in both. Loss and grads are bitwise
+    equal: both kernels are deterministic, so the recomputed O and lse
+    are the saved ones."""
+    base = dataclasses.replace(tiny(), d_model=256, n_heads=2, n_kv_heads=2,
+                               d_ff=512, dtype="bfloat16",
+                               param_dtype="bfloat16", remat=True)
+    params = Transformer(base).init(0, device=dev)
+    toks = torch.randint(0, base.vocab_size, (2, 96), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    out = {}
+    for policy in ("full", "save_attn"):
+        leaves = bench.leaves(params)
+        for x in leaves:
+            x.requires_grad_(True)
+        before = (flash_attention.launches, flash_attention.dkdv_launches,
+                  flash_attention.dq_launches)
+        model = Transformer(dataclasses.replace(base, remat_policy=policy))
+        loss = model.loss(params, {"tokens": toks})
+        grads = torch.autograd.grad(loss, leaves)
+        added = [a - b for a, b in zip(
+            (flash_attention.launches, flash_attention.dkdv_launches,
+             flash_attention.dq_launches), before)]
+        out[policy] = (loss, grads, added)
+    assert out["full"][2] == [4, 2, 2]
+    assert out["save_attn"][2] == [2, 2, 2]
+    assert torch.equal(out["full"][0], out["save_attn"][0])
+    assert all(torch.equal(a, b)
+               for a, b in zip(out["full"][1], out["save_attn"][1]))
+
+
+@pytest.mark.cuda
+def test_llm_engine_on_the_card_streams_the_core_tokens(dev):
+    """LLMEngine on the card: the tokens pushed over its stream equal
+    EngineCore's greedy tokens for the same prompts and weights."""
+    import queue
+    import time
+
+    from ray_tpu_torch.serve.llm import LLMEngine, stream_client
+    cfg = dataclasses.replace(tiny(), d_model=256, n_heads=4, n_kv_heads=2,
+                              d_ff=512, dtype="bfloat16")
+    params = cast_for_serving(Transformer(cfg).init(0, device=dev), cfg)
+    prompts = {"a": list(range(1, 40)), "b": [5, 6, 7], "c": [9] * 20}
+    core = EngineCore(cfg, params, num_pages=32, page_size=8, max_batch=4)
+    for rid, p in prompts.items():
+        core.submit(p, max_tokens=6, rid=rid)
+    want = {}
+    while core.has_work:
+        for ev in core.step():
+            if ev["token"] is not None:
+                want.setdefault(ev["rid"], []).append(ev["token"])
+    del core
+    eng = LLMEngine(model=cfg, weights=params, num_pages=32, page_size=8,
+                    max_batch=4)
+    try:
+        sinks = {}
+        for rid, p in prompts.items():
+            acc = eng.generate(p, max_tokens=6, rid=rid)
+            sinks[rid] = queue.Queue()
+            assert stream_client().subscribe(
+                acc["stream"], rid, acc["incarnation"], 0, 0, sinks[rid])
+        deadline = time.monotonic() + 60
+        for rid, sink in sinks.items():
+            toks, msg = [], {"done": False}
+            while not msg["done"]:
+                msg = sink.get(timeout=max(0.0, deadline - time.monotonic()))
+                assert msg.get("err") is None, msg
+                toks.extend(msg["toks"][max(0, len(toks) - msg["base"]):])
+            assert toks == want[rid], rid
+    finally:
+        eng.close()
 
 
 @pytest.mark.cuda
@@ -356,6 +446,25 @@ def test_engine_on_the_card_matches_the_cpu_plain_path(dev):
 
 
 # ---------------------------------------------------------- no card needed
+@pytest.mark.parametrize("b,h,kvh,s,d", [(1, 4, 2, 9, 16),
+                                         (2, 2, 2, 1, 64)])
+def test_flash_op_fake_matches_the_cpu_plain_path(b, h, kvh, s, d):
+    """The op's fake gives O and lse the layout its CPU path returns
+    (O in the kernel's (b, s, h, d) memory), and the op passes
+    torch.library's registration checks (schema, autograd, fake)."""
+    gen = torch.Generator().manual_seed(s)
+    q, k, v = (torch.randn(b, n, s, d, generator=gen) for n in (h, kvh, kvh))
+    real, fake = _flash_op_layouts(q, k, v)
+    assert real == fake
+    assert real[0][1] == (s * h * d, d, h * d, 1)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    torch.library.opcheck(attention.flash_fwd, (q, k, v, True, d ** -0.5),
+                          test_utils=("test_schema",
+                                      "test_autograd_registration",
+                                      "test_faketensor"))
+
+
 def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
     a = _build.library_path("flash_fwd")
     assert a.parent == _build.BUILD_DIR

@@ -268,6 +268,9 @@ def test_engine_refuses_params_on_another_device(models):
 
 # ----------------------------------------------------- import hygiene
 def test_port_imports_neither_jax_nor_ray_tpu():
+    """Every module of the port, and chip_smoke, imports neither JAX nor
+    the JAX package, nor the JAX wire's codecs (protobuf, cloudpickle),
+    which the chip machine does not have."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import ray_tpu_torch\n"
@@ -275,15 +278,25 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "                               'ray_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "importlib.import_module('chip_smoke')\n"
+        "from ray_tpu_torch.serve.llm import LLMEngine\n"
         "bad = sorted(n for n in sys.modules if n == 'jax'\n"
         "             or n.startswith(('jax.', 'jaxlib'))\n"
-        "             or n == 'ray_tpu' or n.startswith('ray_tpu.'))\n"
+        "             or n == 'ray_tpu' or n.startswith('ray_tpu.')\n"
+        "             or n == 'cloudpickle' or n.startswith('cloudpickle.')\n"
+        "             or n == 'google.protobuf'\n"
+        "             or n.startswith('google.protobuf.'))\n"
         "n = sum(1 for n in sys.modules if n.startswith('ray_tpu_torch.'))\n"
-        "print(n, bad)\n"
+        "print(n, bad, ' '.join(sorted(sys.modules)))\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.returncode == 0, out.stdout[:2000] + out.stderr
     imported = int(out.stdout.split()[0])
-    assert imported >= 12, out.stdout
+    assert imported >= 22, out.stdout[:2000]
+    modules = set(out.stdout.split())
+    for name in ("_private.config", "_private.context",
+                 "_private.direct_actor", "_private.metrics_plane",
+                 "_private.protocol", "_private.wire", "util.metrics",
+                 "serve.llm.stream", "serve.llm.engine"):
+        assert "ray_tpu_torch." + name in modules, name

@@ -94,7 +94,9 @@ LOSS_CASES = [
 def test_loss_and_grads_match_jax(name, overrides, opts):
     """`Transformer.loss` and the gradient of every leaf against
     `jax.value_and_grad(model.loss)`; f32 through 2 layers, sum order
-    only: loss rtol 1e-5, grads atol 1e-5 (largest grads ~1e-1)."""
+    only: loss rtol 1e-5, grads atol 1e-5 (largest grads ~1e-1). Under
+    `remat_save_attn` the port's checkpoint keeps the flash op's O and
+    lse (the JAX model runs its off-TPU plain path)."""
     jmodel, jparams, model, params = _pair(seed=len(name), **overrides)
     batch = _batch(len(name), **opts)
     jloss, jgrads = jax.jit(jax.value_and_grad(jmodel.loss))(
@@ -150,6 +152,72 @@ def test_remat_reruns_each_layer_in_the_backward(monkeypatch):
         with torch.no_grad():
             model.loss(params, batch)
         assert len(calls) == 2
+
+
+@pytest.mark.parametrize("policy,want", [("full", 4), ("save_attn", 2)])
+def test_save_attn_runs_the_attention_forward_once_per_layer(
+        monkeypatch, policy, want):
+    """In a loss-and-backward step of the 2-layer model, full remat runs
+    each layer's flash forward twice (forward and recompute); save_attn
+    keeps its O and lse across the checkpoint and runs it once. The
+    loss and every grad are bitwise those of full remat, since the
+    recompute reproduces the saved values exactly."""
+    from ray_tpu_torch.ops import attention
+    _, _, _, params = _pair(seed=4)
+    batch = {"tokens": torch.from_numpy(_batch(4)["tokens"])}
+    calls = []
+    plain = attention.flash_attention_reference
+    monkeypatch.setattr(attention, "flash_attention_reference",
+                        lambda *a: calls.append(1) or plain(*a))
+    out = {}
+    for pol in ("full", policy):
+        model = Transformer(dataclasses.replace(tiny(), remat=True,
+                                                remat_policy=pol))
+        leaves = bench.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        calls.clear()
+        loss = model.loss(params, batch)
+        out[pol] = (loss, torch.autograd.grad(loss, leaves))
+    assert len(calls) == want
+    (loss_full, g_full), (loss, grads) = out["full"], out[policy]
+    assert torch.equal(loss, loss_full)
+    assert all(torch.equal(a, b) for a, b in zip(grads, g_full))
+
+
+def test_attn_remat_policy_replays_each_forward_in_order(monkeypatch):
+    """A checkpointed region with two flash calls under
+    `attn_remat_policy()`: the plain forward runs once per call, the
+    recompute gets each call's own O and lse back, and a second backward
+    through the kept graph (a second recompute) gets them again. Grads
+    equal those of the region run without checkpoint, exactly."""
+    from torch.utils.checkpoint import checkpoint
+
+    from ray_tpu_torch.ops import attention
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 4, 12, 8, generator=gen) for _ in range(3))
+    w = torch.randn(4, 4, generator=gen)
+
+    def region(q, k, v):
+        a = attention.flash_attention(q, k, v)
+        b = attention.flash_attention(torch.einsum("gh,bhsd->bgsd", w, a),
+                                      k, v, causal=False)
+        return (a * b).sum()
+
+    calls = []
+    plain = attention.flash_attention_reference
+    monkeypatch.setattr(attention, "flash_attention_reference",
+                        lambda *a: calls.append(1) or plain(*a))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    want = torch.autograd.grad(region(q, k, v), (q, k, v))
+    calls.clear()
+    loss = checkpoint(region, q, k, v, use_reentrant=False,
+                      context_fn=attention.attn_remat_policy())
+    for _ in range(2):
+        got = torch.autograd.grad(loss, (q, k, v), retain_graph=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len(calls) == 2
 
 
 def test_three_adamw_steps_match_optax():
