@@ -35,7 +35,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      TTFT and TPOT beside EngineCore's decode p50), a wrong incarnation
      is fenced, a drain mid-generation hands back its descriptor, and an
      engine without a stream serves through next_tokens;
-  6. train: the model of the repo's `bench.py` (~0.95 B params, bf16,
+  6. runtime: the port's single-host runtime (`ray_tpu_torch.init`),
+     which must count the card as its GPU resource: a CPU task, a 64 MiB
+     put/get through shm, then a `num_gpus=1` actor that serves
+     llama3-8b through EngineCore in its own process (the same requests
+     as phase 5, whose tokens it must give exactly, with the flash
+     forward and RMSNorm launched there); a second `num_gpus=1` actor
+     waits until the first is killed; after `shutdown()` the card's
+     memory is back;
+  7. train: the model of the repo's `bench.py` (~0.95 B params, bf16,
      seq 2048, batch 2) at full width and depth through
      `ray_tpu_torch.bench.train_step` (loss, backward, AdamW): 2 warm-up
      and 20 timed steps on a fixed batch (step time, and the host's
@@ -777,24 +785,22 @@ def profile_steps(core, prompts, decode_p50: float) -> dict:
     return out
 
 
-def serve(dev) -> dict:
-    cfg = llama3_8b()
-    model = Transformer(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_for_serving(model, seed=0, device=dev)
-    torch.cuda.synchronize()
-    log(f"serve: llama3-8b init on the card {time.perf_counter() - t0:.1f} s"
-        f", {cfg.num_params() / 1e9:.2f} B params, "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
-    core = TimedCore(cfg, params, device=dev, num_pages=1024, page_size=16,
-                     max_batch=DECODE_ROWS)
+def serve_requests(cfg) -> tuple:
+    """The serving schedule's requests: prompt lengths, new tokens and
+    prompts (random tokens from seed 0) by request id."""
     rng = np.random.default_rng(0)
     lens = {"r0": 10, "r1": 300, "r2": 1100, "r3": 2900}
     new_tokens = {"r0": 32, "r1": 24, "r2": 16, "r3": 16, "mid": 24}
     prompts = {rid: rng.integers(0, cfg.vocab_size, n).tolist()
                for rid, n in {**lens, "mid": 700}.items()}
+    return lens, new_tokens, prompts
 
+
+def run_schedule(core, prompts, lens, new_tokens) -> tuple:
+    """A warm-up request, then the counted run: the four requests of
+    `lens` at once and `mid` at step 3, stepped until the core is idle.
+    Returns (tokens by rid, finish reason by rid, steps, wall s, kernel
+    launches of the counted run)."""
     # warm-up request outside the counted window (cuBLAS heuristics,
     # the kernels' first loads)
     core.submit(prompts["r0"], max_tokens=2, rid="warm")
@@ -823,9 +829,15 @@ def serve(dev) -> dict:
         if steps > 200:
             raise RuntimeError("engine did not go idle in 200 steps")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernel_counts()
+    return tokens, done, steps, time.perf_counter() - t0, kernel_counts()
 
+
+def check_schedule(cfg, core, prompts, new_tokens, tokens, done,
+                   launches) -> None:
+    """Every request finished with its tokens in the vocab, no page is
+    left allocated, and each serving kernel launched once a layer a
+    prefill (flash forward) or twice a layer and once more a step
+    (RMSNorm)."""
     if set(done) != set(prompts):
         raise AssertionError(f"finished {sorted(done)}, "
                              f"submitted {sorted(prompts)}")
@@ -840,13 +852,32 @@ def serve(dev) -> dict:
     st = core.stats()
     if st["free_pages"] != st["num_pages"]:
         raise AssertionError(f"pages leaked: {st}")
-    prefill_ms, decode_ms = list(core.prefill_ms), list(core.decode_ms)
-    n_prefill, n_decode = len(prefill_ms), len(decode_ms)
+    n_prefill, n_decode = len(core.prefill_ms), len(core.decode_ms)
     want = {"flash_fwd": cfg.n_layers * n_prefill,
             "flash_dkdv": 0, "flash_dq": 0,
             "rms_norm": (2 * cfg.n_layers + 1) * (n_prefill + n_decode)}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
+
+
+def serve(dev) -> dict:
+    cfg = llama3_8b()
+    model = Transformer(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_for_serving(model, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"serve: llama3-8b init on the card {time.perf_counter() - t0:.1f} s"
+        f", {cfg.num_params() / 1e9:.2f} B params, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
+    core = TimedCore(cfg, params, device=dev, num_pages=1024, page_size=16,
+                     max_batch=DECODE_ROWS)
+    lens, new_tokens, prompts = serve_requests(cfg)
+    tokens, done, steps, wall, launches = run_schedule(core, prompts, lens,
+                                                       new_tokens)
+    check_schedule(cfg, core, prompts, new_tokens, tokens, done, launches)
+    prefill_ms, decode_ms = list(core.prefill_ms), list(core.decode_ms)
+    n_decode = len(decode_ms)
 
     # one prompt's paged prefill logits against the full forward
     rid = "r1"
@@ -881,7 +912,7 @@ def serve(dev) -> dict:
         "prefill_ms": [(n_, round(ms, 3)) for n_, ms in prefill_ms],
         "decode_step_ms_p50": decode_p50,
         "decode_steps": n_decode, "launches": launches,
-        "logits_max_abs_err": err,
+        "logits_max_abs_err": err, "tokens": tokens,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
     del core, cache                  # the engine below makes its own cache
@@ -1397,6 +1428,145 @@ def train(dev, peaks) -> dict:
     }
 
 
+def _double(x):
+    return 2 * x
+
+
+class GpuServer:
+    """The runtime phase's actor, made remote with `num_gpus=1`: in its
+    own worker process it must see the card, then `serve` runs the
+    serving schedule of `serve()` through EngineCore there."""
+
+    def __init__(self):
+        self.constructed = time.time()      # wall clock: the driver's too
+        if not torch.cuda.is_available():
+            raise RuntimeError("the GPU actor sees no card")
+        self.pid = os.getpid()
+
+    def ready(self) -> dict:
+        name = torch.cuda.get_device_name(0)
+        return {"pid": self.pid, "device": name,
+                "constructed": self.constructed, "ready": time.time()}
+
+    def serve(self) -> dict:
+        import chip_smoke
+        return chip_smoke.actor_serve(torch.device("cuda", 0))
+
+
+def actor_serve(dev) -> dict:
+    """Inside the GPU actor: llama3-8b from seed 0 on `dev`, then
+    `serve()`'s schedule (a warm-up, five requests, `mid` at step 3)
+    through EngineCore, with the launch counts of this process."""
+    cfg = llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_for_serving(Transformer(cfg), seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    core = TimedCore(cfg, params, device=dev, num_pages=1024, page_size=16,
+                     max_batch=DECODE_ROWS)
+    lens, new_tokens, prompts = serve_requests(cfg)
+    tokens, done, steps, wall, launches = run_schedule(core, prompts, lens,
+                                                       new_tokens)
+    check_schedule(cfg, core, prompts, new_tokens, tokens, done, launches)
+    return {"pid": os.getpid(), "weights_init_s": init_s, "tokens": tokens,
+            "steps": steps, "wall_s": wall, "launches": launches,
+            "decode_step_ms_p50": statistics.median(core.decode_ms),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def runtime(served: dict) -> dict:
+    """The port's single-host runtime with the card as a GPU resource:
+    `init(num_cpus=4)` must report the card count as GPU; a CPU task
+    round trip and a 64 MiB put/get through shm; a `num_gpus=1` actor in
+    its own process serves llama3-8b and must give `serve()`'s exact
+    EngineCore tokens, with the flash forward and RMSNorm launched in
+    that process; a second `num_gpus=1` actor waits while the first
+    holds the card and starts once it is killed; after `shutdown()` the
+    card's free memory is back within 1 GiB."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.specs import SESSION_TAG
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4)
+    out = {"init_s": time.perf_counter() - t0}
+    try:
+        gpus = ray_tpu_torch.cluster_resources().get("GPU")
+        if gpus != torch.cuda.device_count():
+            raise AssertionError(f"GPU resource {gpus}, cards "
+                                 f"{torch.cuda.device_count()}")
+        t0 = time.perf_counter()
+        if ray_tpu_torch.get(ray_tpu_torch.remote(_double).remote(21),
+                             timeout=120) != 42:
+            raise AssertionError("CPU task round trip")
+        out["cpu_task_s"] = time.perf_counter() - t0
+        big = np.random.default_rng(0).integers(0, 256, 64 << 20,
+                                                dtype=np.uint8)
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(big)
+        back = ray_tpu_torch.get(ref)
+        out["put_get_64mib_s"] = time.perf_counter() - t0
+        segs = [n for n in os.listdir("/dev/shm")
+                if n.startswith(f"rtt_{SESSION_TAG}_{ref.object_id}")]
+        if not segs or not np.array_equal(back, big):
+            raise AssertionError(f"64 MiB put/get: segments {segs}")
+        del ref, back, big
+
+        server = ray_tpu_torch.remote(num_gpus=1)(GpuServer)
+        t0, wall0 = time.perf_counter(), time.time()
+        first = server.remote()
+        info = ray_tpu_torch.get(first.ready.remote(), timeout=300)
+        out["actor_start_s"] = time.perf_counter() - t0
+        # where the start goes: to the constructor (a worker's start, its
+        # imports, torch's with the class), then to the first CUDA call
+        out["actor_to_constructor_s"] = info["constructed"] - wall0
+        out["actor_constructor_to_ready_s"] = info["ready"] - info["constructed"]
+        if info["pid"] == os.getpid():
+            raise AssertionError("the GPU actor runs in the driver")
+        got = ray_tpu_torch.get(first.serve.remote(), timeout=900)
+        out["held_gib"] = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 30
+        log(f"runtime: actor start {out['actor_start_s']:.2f} s, weights "
+            f"init {got['weights_init_s']:.2f} s (in the actor)")
+        log(f"runtime: decode p50 {got['decode_step_ms_p50']:.3f} ms in the "
+            f"actor, {served['decode_step_ms_p50']:.3f} ms in serve()")
+        if got["tokens"] != served["tokens"]:
+            raise AssertionError(f"actor tokens {got['tokens']} differ from "
+                                 f"EngineCore's {served['tokens']}")
+        for name in ("flash_fwd", "rms_norm"):
+            if got["launches"][name] <= 0:
+                raise AssertionError(f"{name} never launched in the actor")
+        second = server.remote()
+        second_ready = second.ready.remote()
+        waiting, _ = ray_tpu_torch.wait([second_ready], timeout=2)
+        if waiting:
+            raise AssertionError("a second num_gpus=1 actor started while "
+                                 "the first held the card")
+        t0 = time.perf_counter()
+        ray_tpu_torch.kill(first)
+        started, _ = ray_tpu_torch.wait([second_ready], timeout=300)
+        if not started:
+            raise AssertionError("the second GPU actor did not start once "
+                                 "the first was killed")
+        out["second_actor_start_s"] = time.perf_counter() - t0
+        if ray_tpu_torch.get(second_ready)["pid"] == info["pid"]:
+            raise AssertionError("the second GPU actor reused the first's "
+                                 "process")
+        ray_tpu_torch.kill(second)
+    finally:
+        ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 60
+    while (torch.cuda.mem_get_info()[0] < free0 - 2 ** 30
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    out["not_returned_gib"] = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 30
+    if out["not_returned_gib"] > 1.0:
+        raise AssertionError(f"{out['not_returned_gib']:.2f} GiB of the card "
+                             f"not back after shutdown")
+    got.pop("tokens")
+    return {**out, "actor": got}
+
+
 def resources(res: dict, kind: str) -> dict:
     """A flash kernel's resources at head_dim 128 (the main paths'), then
     ptxas's and the card's numbers at both head dims."""
@@ -1456,11 +1626,14 @@ def main() -> None:
     left = torch.cuda.memory_allocated() / 2 ** 30
     if left > 1.0:
         raise AssertionError(f"serving left {left:.2f} GiB allocated")
+    ran = runtime(served)
+    log("runtime: " + json.dumps(ran))
     trained = train(dev, peaks)
     log("train: " + json.dumps(trained))
     # launches on each main path, each read just after that path ran
     paths = {"engine_core": served["launches"],
              "llm_engine": served["llm_engine"]["launches"],
+             "actor_engine_core": ran["actor"]["launches"],
              "train_20_steps": trained["launches"],
              "train_remat_full_step":
                  trained["remat_steps"]["launches"]["full"],

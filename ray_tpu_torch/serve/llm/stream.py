@@ -14,7 +14,9 @@ delivered. Duplicate suppression uses the `base` sequence offset:
 subscribe replays the backlog from the client's cursor, and overlap
 trimming makes replay and live frames racing harmless. Unlike the JAX
 server, a subscriber's live frames wait until its replay is sent, so a
-consumer never sees a frame start past its cursor.
+consumer never sees a frame start past its cursor, and a subscription
+whose replay is final (an unknown rid, or a request already done) is
+dropped at once instead of when its connection closes.
 
 Wire frames use "req" for the request id ("rid" is the connection's own
 reply-id field):
@@ -25,8 +27,10 @@ reply-id field):
                     ("unknown": True when the rid isn't on this engine:
                     the consumer fails over)
 
-The listener binds the address it advertises: loopback until the
-runtime slice gives the process a context.
+The frames ride the runtime's `protocol.Connection` and its versioned
+protobuf codec (`_private/wire.py`), as the JAX stream's do. The
+listener binds the address it advertises: the source address of the
+process's runtime connection inside a worker, loopback outside one.
 """
 from __future__ import annotations
 
@@ -86,7 +90,7 @@ class TokenStreamServer:
                 return
             conn = protocol.Connection(sock, self._handle,
                                        on_close=self._on_close,
-                                       name="llm-stream")
+                                       name="llm-stream", server=True)
             with self._lock:
                 self._conns.append(conn)
             conn.start()
@@ -95,10 +99,7 @@ class TokenStreamServer:
         with self._lock:
             self._conns = [c for c in self._conns if c is not conn]
             for rid in list(self._subs):
-                self._subs[rid] = [s for s in self._subs[rid]
-                                   if s[0] is not conn]
-                if not self._subs[rid]:
-                    del self._subs[rid]
+                self._drop_locked(rid, lambda s: s[0] is conn)
 
     def _handle(self, conn, msg: dict) -> None:
         mtype = msg.get("type")
@@ -117,6 +118,12 @@ class TokenStreamServer:
             back = self._backlog(rid, cursor)
             with self._lock:
                 held, sub[2] = sub[2], None
+                final = back is None or back["done"]
+                if final:
+                    # the replay is rid's last frame: nothing is published
+                    # for it again, so the entry goes now, not when the
+                    # consumer's connection closes
+                    self._drop_locked(rid, lambda s: s is sub)
                 if back is None:
                     self._send(conn, {"type": "llm_tok", "req": rid,
                                       "inc": self._inc, "unknown": True,
@@ -134,19 +141,24 @@ class TokenStreamServer:
                                       "reason": back["reason"],
                                       "err": back["err"]})
                     sub[1] = max(sub[1], back["base"] + len(back["toks"]))
+                if final:
+                    return
                 for rec in held:
                     self._push(sub, rid, rec)
         elif mtype == "llm_unsub":
-            rid = msg["req"]
             with self._lock:
-                subs = self._subs.get(rid)
-                if subs:
-                    self._subs[rid] = [s for s in subs
-                                       if s[0] is not conn]
-                    if not self._subs[rid]:
-                        del self._subs[rid]
+                self._drop_locked(msg["req"], lambda s: s[0] is conn)
         elif mtype == protocol.PING:
             conn.reply(msg, ok=True)
+
+    def _drop_locked(self, rid: str, gone: Callable[[list], bool]) -> None:
+        """Unregister rid's subscriptions for which `gone` holds; the
+        caller holds the lock."""
+        subs = [s for s in self._subs.get(rid, ()) if not gone(s)]
+        if subs:
+            self._subs[rid] = subs
+        else:
+            self._subs.pop(rid, None)
 
     def _send(self, conn, frame: dict) -> None:
         try:

@@ -1,1 +1,2 @@
-"""Utilities of the port: so far the in-process metrics registry."""
+"""Utilities of the port: so far the metrics registry and the
+scheduling strategies."""

@@ -172,6 +172,24 @@ def test_live_frames_never_overtake_the_replay(published_before_replay):
         server.close()
 
 
+def test_a_subscription_whose_replay_is_final_is_unregistered(engine):
+    """A subscribe to a rid the engine does not know, or to one that is
+    already done, gets its one terminal frame and leaves no entry in the
+    server's subscriptions (the JAX server keeps such an entry until the
+    consumer's connection closes)."""
+    acc = engine.generate([1, 2, 3], max_tokens=3, rid="f")
+    toks, _ = _poll(engine, "f")
+    for rid, err in (("nope", "unknown_rid"), ("f", None)):
+        sink = queue.Queue()
+        assert stream_client().subscribe(acc["stream"], rid,
+                                         acc["incarnation"], 0, 0, sink)
+        msg = sink.get(timeout=WAIT_S)
+        assert msg["done"] and msg["err"] == err, msg
+        if err is None:
+            assert msg["toks"] == toks
+    assert engine._stream._subs == {}
+
+
 def test_engine_drain_marks_and_publishes(monkeypatch):
     monkeypatch.setenv("RAY_TPU_LLM_STEP_DELAY_S", "0.05")
     CONFIG.reload()

@@ -1,11 +1,11 @@
-"""The port's framed wire (`ray_tpu_torch/_private/{wire,protocol}.py`).
+"""The port's framed connection (`ray_tpu_torch/_private/protocol.py`).
 
-The JAX wire encodes a protobuf Envelope with a pickled escape hatch;
-the port's encodes plain values as versioned JSON. These tests hold the
-port's codec and `Connection` to the JAX protocol's contract: exact
-round trips, request/reply across threads, the max-frame guard, refusal
-of another wire major version at the first frame, and ConnectionClosed
-once a connection is gone. Connections are joined over loopback TCP.
+These tests hold the port's `Connection` and `dial_cached` to the JAX
+protocol's contract: request/reply across threads, the max-frame guard,
+refusal of another wire major version at the first frame, and
+ConnectionClosed once a connection is gone. Connections are joined over
+loopback TCP. The codec itself (the JAX wire's protobuf Envelope) is
+held to the JAX package by `tests/test_torch_wire.py`.
 """
 import socket
 import struct
@@ -15,6 +15,7 @@ import threading
 import pytest
 
 from ray_tpu_torch._private import protocol, wire
+from ray_tpu_torch._private import wire_pb2 as pb
 from ray_tpu_torch._private.direct_actor import dial_cached
 
 WAIT_S = 5.0
@@ -46,48 +47,6 @@ def _pair(server_handler, client_handler=lambda c, m: None):
     client.start()
     server.start()
     return client, server, closed
-
-
-@pytest.mark.parametrize("msg", [
-    {"type": "llm_tok", "req": "r1", "inc": "ab12cd34", "attempt": 0,
-     "base": 3, "toks": [17, 254, 9], "done": False, "reason": None,
-     "err": None},
-    {"type": "llm_sub", "req": "é-ü", "cursor": 0, "unknown": True},
-    {"type": "x", "f": -1.5, "nested": {"a": [[], [1, [2, {"b": None}]]]},
-     "big": (1 << 62)},
-    {},
-])
-def test_codec_round_trips_plain_values(msg):
-    data = wire.dumps(msg)
-    assert struct.unpack_from("<H", data)[0] == wire.WIRE_VERSION
-    got, version = wire.loads_ex(data)
-    assert got == msg and version == wire.WIRE_VERSION
-
-
-@pytest.mark.parametrize("bad", [
-    {"toks": (1, 2)},                     # a tuple would come back a list
-    {1: "int key"},                       # an int key would come back a str
-    {"obj": object()},
-    {"nan": float("nan")},
-    {"deep": [[[[[[[[[[[[[[[[[1]]]]]]]]]]]]]]]]]},
-])
-def test_codec_refuses_what_json_would_not_round_trip(bad):
-    with pytest.raises((TypeError, ValueError)):
-        wire.dumps(bad)
-
-
-def test_codec_refuses_another_major_version_and_malformed_bodies():
-    body = wire.dumps({"type": "ping"})[2:]
-    for version in (0, 99, 200, 7301):
-        with pytest.raises(wire.WireVersionError):
-            wire.loads_ex(struct.pack("<H", version) + body)
-    # MINOR skew is compatible
-    msg, version = wire.loads_ex(struct.pack("<H", 199) + body)
-    assert msg == {"type": "ping"} and version == 199
-    for data in (b"", b"\x64", struct.pack("<H", 100) + b"[1, 2]",
-                 struct.pack("<H", 100) + b"{not json"):
-        with pytest.raises(ValueError):
-            wire.loads_ex(data)
 
 
 def test_request_reply_across_threads():
@@ -157,7 +116,8 @@ def test_peer_with_another_major_is_refused_at_its_first_frame():
                                  on_close=lambda c: closed.set(),
                                  name="server")
     server.start()
-    body = struct.pack("<H", 200) + b'{"type":"ping","rid":1}'
+    body = pb.Envelope(version=(wire.WIRE_MAJOR + 1) * 100, type="ping",
+                       rid=1).SerializeToString()
     a.sendall(struct.pack("<Q", len(body)) + body)
     assert closed.wait(WAIT_S) and server.closed
     assert seen == [] and server.peer_wire_version == 0

@@ -269,9 +269,30 @@ def test_engine_refuses_params_on_another_device(models):
 # ----------------------------------------------------- import hygiene
 def test_port_imports_neither_jax_nor_ray_tpu():
     """Every module of the port, and chip_smoke, imports neither JAX nor
-    the JAX package, nor the JAX wire's codecs (protobuf, cloudpickle),
-    which the chip machine does not have."""
-    code = (
+    the JAX package. The runtime's wire carries cloudpickled closures in
+    protobuf envelopes, as the JAX wire does (the chip machine has both
+    packages); the compute modules, `ops/` and `models/`, import neither,
+    which a fresh interpreter that imports only those checks."""
+    def run(code):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 0, out.stdout[:2000] + out.stderr
+        return int(out.stdout.split()[0]), set(out.stdout.split())
+
+    jax_or_ray_tpu = (
+        "n == 'jax' or n.startswith(('jax.', 'jaxlib'))\n"
+        "             or n == 'ray_tpu' or n.startswith('ray_tpu.')")
+    codecs = (
+        "n == 'cloudpickle' or n.startswith('cloudpickle.')\n"
+        "             or n == 'google.protobuf'\n"
+        "             or n.startswith('google.protobuf.')")
+    report = (
+        "n = sum(1 for n in sys.modules if n.startswith('ray_tpu_torch.'))\n"
+        "print(n, bad, ' '.join(sorted(sys.modules)))\n"
+        "sys.exit(1 if bad else 0)\n")
+    imported, modules = run(
         "import sys, pkgutil, importlib\n"
         "import ray_tpu_torch\n"
         "for m in pkgutil.walk_packages(ray_tpu_torch.__path__,\n"
@@ -279,24 +300,25 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "    importlib.import_module(m.name)\n"
         "importlib.import_module('chip_smoke')\n"
         "from ray_tpu_torch.serve.llm import LLMEngine\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
-        "             or n.startswith(('jax.', 'jaxlib'))\n"
-        "             or n == 'ray_tpu' or n.startswith('ray_tpu.')\n"
-        "             or n == 'cloudpickle' or n.startswith('cloudpickle.')\n"
-        "             or n == 'google.protobuf'\n"
-        "             or n.startswith('google.protobuf.'))\n"
-        "n = sum(1 for n in sys.modules if n.startswith('ray_tpu_torch.'))\n"
-        "print(n, bad, ' '.join(sorted(sys.modules)))\n"
-        "sys.exit(1 if bad else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stdout[:2000] + out.stderr
-    imported = int(out.stdout.split()[0])
-    assert imported >= 22, out.stdout[:2000]
-    modules = set(out.stdout.split())
+        "bad = sorted(n for n in sys.modules if " + jax_or_ray_tpu + ")\n"
+        + report)
+    assert imported >= 54, sorted(modules)[:200]
     for name in ("_private.config", "_private.context",
                  "_private.direct_actor", "_private.metrics_plane",
                  "_private.protocol", "_private.wire", "util.metrics",
-                 "serve.llm.stream", "serve.llm.engine"):
+                 "_private.runtime", "_private.worker_main",
+                 "_private.object_store", "_private.scheduler", "api",
+                 "actor", "native", "serve.llm.stream", "serve.llm.engine"):
         assert "ray_tpu_torch." + name in modules, name
+    imported, modules = run(
+        "import sys, pkgutil, importlib\n"
+        "import ray_tpu_torch.ops, ray_tpu_torch.models\n"
+        "for pkg in (ray_tpu_torch.ops, ray_tpu_torch.models):\n"
+        "    for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                   pkg.__name__ + '.'):\n"
+        "        importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if " + jax_or_ray_tpu
+        + "\n             or " + codecs + ")\n"
+        + report)
+    assert imported >= 12, sorted(modules)
+    assert "ray_tpu_torch._private.runtime" not in modules
