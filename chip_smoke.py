@@ -43,7 +43,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      forward and RMSNorm launched there); a second `num_gpus=1` actor
      waits until the first is killed; after `shutdown()` the card's
      memory is back;
-  7. train: the model of the repo's `bench.py` (~0.95 B params, bf16,
+  7. serve_llm: llama3-8b through `serve_llm`, the user's entry point:
+     the weights `put` in the object store (each large tensor in its own
+     shm segment), one `num_gpus=1` replica deployed by the Serve
+     controller from that ObjectRef, the same five requests through
+     `LLMHandle.generate` and their TokenStreams, which must give
+     phase 5's EngineCore tokens exactly, with the flash forward and
+     RMSNorm launched in the replica; after `serve.shutdown()` the
+     card's memory is back;
+  8. train: the model of the repo's `bench.py` (~0.95 B params, bf16,
      seq 2048, batch 2) at full width and depth through
      `ray_tpu_torch.bench.train_step` (loss, backward, AdamW): 2 warm-up
      and 20 timed steps on a fixed batch (step time, and the host's
@@ -68,6 +76,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1567,6 +1576,156 @@ def runtime(served: dict) -> dict:
     return {**out, "actor": got}
 
 
+def consume_streams(streams: dict, deadline_s: float) -> tuple:
+    """Each TokenStream drained on its own thread, with the host time of
+    every token. Returns (tokens, token times) by request id; raises what
+    a consumer raised, or on a consumer still running at the deadline."""
+    tokens, stamps, errors = {}, {}, {}
+
+    def run(rid, stream):
+        times = []
+        try:
+            for _ in stream:
+                times.append(time.perf_counter())
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors[rid] = e
+        tokens[rid], stamps[rid] = list(stream.emitted), times
+
+    threads = [threading.Thread(target=run, args=item, daemon=True)
+               for item in streams.items()]
+    for t in threads:
+        t.start()
+    end = time.monotonic() + deadline_s
+    for t in threads:
+        t.join(max(0.0, end - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"token streams still open after {deadline_s} s")
+    for rid, e in errors.items():
+        raise AssertionError(f"stream {rid} failed: {e!r}") from e
+    return tokens, stamps
+
+
+def serve_llm_phase(served: dict, dev) -> dict:
+    """llama3-8b through `serve_llm`, the user's entry point to LLM
+    serving: the weights from seed 0, made on the card and `put` in the
+    object store (one shm segment a large tensor, timed), one replica
+    (`num_gpus=1`) deployed through the Serve controller from that
+    ObjectRef, then `serve()`'s five requests through `LLMHandle.generate`,
+    each TokenStream consumed on its own thread. The tokens must equal
+    `serve()`'s EngineCore tokens exactly, the flash forward must have
+    launched once a layer a prefill in the replica and RMSNorm there too,
+    and after `serve.shutdown()` and `shutdown()` the card's free memory
+    is back within 1 GiB. `dev` is the card; the CPU only rehearses."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rt_serve
+    from ray_tpu_torch._private import context
+    from ray_tpu_torch._private.specs import SESSION_TAG
+    from ray_tpu_torch.serve.llm import serve_llm
+    on_card = dev.type == "cuda"
+    cfg = llama3_8b()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    ray_tpu_torch.init(num_cpus=4)
+    out = {}
+    try:
+        params = init_for_serving(Transformer(cfg), seed=0, device=dev)
+        leaves = bench.leaves(params)
+        sizes = [t.numel() * t.element_size() for t in leaves]
+        large = sum(n >= CONFIG.inline_threshold_bytes for n in sizes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(params)
+        out["put_s"] = time.perf_counter() - t0
+        segs = [n for n in os.listdir("/dev/shm")
+                if n.startswith(f"rtt_{SESSION_TAG}_{ref.object_id}_")]
+        out.update(weights_bytes=sum(sizes), tensors=len(leaves),
+                   large_tensors=large, shm_segments=len(segs))
+        if len(segs) != large:
+            raise AssertionError(f"put made {len(segs)} shm segments for "
+                                 f"{large} tensors over the inline limit")
+        del params, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        lens, new_tokens, prompts = serve_requests(cfg)
+        t0 = time.perf_counter()
+        handle = serve_llm(
+            name="llama3-8b", model=cfg, weights=ref, num_replicas=1,
+            num_pages=1024, page_size=16, max_batch=DECODE_ROWS,
+            ray_actor_options={"num_gpus": 1} if on_card else {},
+            device=None if on_card else "cpu")
+        out["serve_llm_s"] = time.perf_counter() - t0
+        deadline = time.monotonic() + 300
+        while not (stats := handle.stats()):
+            if time.monotonic() > deadline:
+                actors = [(a["state"], a["num_restarts"], a["death_cause"])
+                          for a in context.get_ctx().state_op("list_actors")]
+                raise AssertionError(f"the replica did not answer in 300 s: "
+                                     f"{rt_serve.status()}, actors {actors}")
+            time.sleep(0.2)
+        out["replica_first_answer_s"] = time.perf_counter() - t0
+        if len(stats) != 1:
+            raise AssertionError(f"{len(stats)} replicas answered, not 1")
+        out["replica_weights_s"] = stats[0]["weights_s"]
+        # warm-up outside the counted run: the replica's first cuBLAS
+        # calls and the stream's first connection
+        warm = handle.generate(prompts["r0"], max_tokens=2, timeout_s=120)
+        if len(warm.tokens()) != 2:
+            raise AssertionError("warm-up request")
+        before = handle.stats()[0]["kernel_launches"]
+        submitted = {}
+        streams = {}
+        for rid in prompts:
+            submitted[rid] = time.perf_counter()
+            streams[rid] = handle.generate(prompts[rid],
+                                           max_tokens=new_tokens[rid],
+                                           timeout_s=120)
+        tokens, stamps = consume_streams(streams, 300.0)
+        after = handle.stats()[0]
+        launches = {k: after["kernel_launches"][k] - before[k]
+                    for k in before}
+        out["launches"] = {"flash_fwd": launches["flash_fwd"],
+                           "flash_dkdv": 0, "flash_dq": 0,
+                           "rms_norm": launches["rms_norm"]}
+        if tokens != served["tokens"]:
+            raise AssertionError(f"serve_llm tokens {tokens} differ from "
+                                 f"EngineCore's {served['tokens']}")
+        if launches["flash_fwd"] != cfg.n_layers * len(prompts):
+            raise AssertionError(f"flash_fwd launched "
+                                 f"{launches['flash_fwd']} times in the "
+                                 f"replica, expected a layer a prefill")
+        if launches["rms_norm"] <= 0:
+            raise AssertionError("rms_norm never launched in the replica")
+        ttft = [stamps[rid][0] - submitted[rid] for rid in prompts]
+        tpot = [b - a for rid in prompts
+                for a, b in zip(stamps[rid], stamps[rid][1:])]
+        out.update(ttft_ms_p50=statistics.median(ttft) * 1e3,
+                   tpot_ms_p50=statistics.median(tpot) * 1e3,
+                   generated_tokens=sum(map(len, tokens.values())),
+                   replica_peak_gib=after.get("device_peak_bytes", 0)
+                   / 2 ** 30)
+        del ref
+    finally:
+        try:
+            rt_serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 60
+    while (torch.cuda.mem_get_info()[0] < free0 - 2 ** 30
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    out["not_returned_gib"] = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 30
+    if out["not_returned_gib"] > 1.0:
+        raise AssertionError(f"{out['not_returned_gib']:.2f} GiB of the card "
+                             f"not back after shutdown")
+    log(f"serve_llm: put {out['put_s']:.2f} s ({out['shm_segments']} shm "
+        f"segments), replica answers {out['replica_first_answer_s']:.2f} s "
+        f"after serve_llm (weights {out['replica_weights_s']:.2f} s there), "
+        f"TTFT p50 {out['ttft_ms_p50']:.1f} ms, TPOT p50 "
+        f"{out['tpot_ms_p50']:.2f} ms")
+    return out
+
+
 def resources(res: dict, kind: str) -> dict:
     """A flash kernel's resources at head_dim 128 (the main paths'), then
     ptxas's and the card's numbers at both head dims."""
@@ -1628,12 +1787,15 @@ def main() -> None:
         raise AssertionError(f"serving left {left:.2f} GiB allocated")
     ran = runtime(served)
     log("runtime: " + json.dumps(ran))
+    llm_served = serve_llm_phase(served, dev)
+    log("serve_llm: " + json.dumps(llm_served))
     trained = train(dev, peaks)
     log("train: " + json.dumps(trained))
     # launches on each main path, each read just after that path ran
     paths = {"engine_core": served["launches"],
              "llm_engine": served["llm_engine"]["launches"],
              "actor_engine_core": ran["actor"]["launches"],
+             "serve_llm_replica": llm_served["launches"],
              "train_20_steps": trained["launches"],
              "train_remat_full_step":
                  trained["remat_steps"]["launches"]["full"],

@@ -5,8 +5,9 @@ reference src/ray/core_worker/store_provider/memory_store/memory_store.h:43,
 and the plasma shm arena, reference src/ray/object_manager/plasma/) with:
 
 - ``serialize``/``deserialize`` built on pickle protocol 5 with
-  ``buffer_callback``: large contiguous buffers (numpy / jax host arrays)
-  are carved out-of-band so cross-process transfer is zero-copy through
+  ``buffer_callback``: large contiguous buffers (numpy arrays, and torch
+  tensors through ``_Pickler``) are carved out-of-band so cross-process
+  transfer is zero-copy through
   POSIX shared memory, the same property plasma's fd-passing provides
   (reference plasma/fling.cc) without a bespoke arena: the kernel shm
   object *is* the arena and the eviction unit.
@@ -38,6 +39,7 @@ refs (spill, stale re-put) keeps the mapping-safe plain unlink.
 from __future__ import annotations
 
 import collections
+import io
 import mmap
 import os
 import pickle
@@ -45,6 +47,7 @@ import sys
 import threading
 import time
 import uuid
+import warnings
 import weakref
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -414,6 +417,58 @@ def unlink_segment(name: str) -> None:
         pass
 
 
+class _Pickler(cloudpickle.CloudPickler):
+    """cloudpickle, with torch tensors out of band: a tensor pickles as
+    its dtype, shape and one buffer of its bytes, which the buffer
+    callback carves out as it does a numpy array's (torch's own reduce
+    keeps the bytes in band). Torch is looked up, never imported: a
+    process that has not loaded it holds no tensor."""
+
+    def reducer_override(self, obj):
+        torch = sys.modules.get("torch")
+        if torch is not None and type(obj) is torch.Tensor:
+            reduced = _reduce_tensor(torch, obj)
+            if reduced is not None:
+                return reduced
+        return super().reducer_override(obj)
+
+
+def _reduce_tensor(torch, t) -> Optional[tuple]:
+    """A dense tensor on the CPU or the card as (`_rebuild_tensor`,
+    args); None for what torch's own reduce must keep (sparse,
+    quantized, meta)."""
+    if (t.layout != torch.strided or t.is_quantized
+            or t.device.type not in ("cpu", "cuda")):
+        return None
+    host = t.detach().resolve_conj().resolve_neg().contiguous().cpu()
+    raw = host.reshape(-1).view(torch.uint8).numpy()
+    return (_rebuild_tensor, (pickle.PickleBuffer(raw),
+                              str(t.dtype).removeprefix("torch."),
+                              tuple(t.shape), t.requires_grad))
+
+
+def _rebuild_tensor(buf, dtype: str, shape: tuple, requires_grad: bool):
+    """A CPU tensor over `buf`. An out-of-band buffer is the object's
+    shared-memory mapping, shared with every other reader: the tensor
+    is a view of it, so code that writes into it copies it first. An
+    in-band buffer is copied here."""
+    import torch
+    dt = getattr(torch, dtype)
+    if memoryview(buf).nbytes == 0:
+        out = torch.empty(shape, dtype=dt)
+    else:
+        with warnings.catch_warnings():
+            # in-band bytes are read-only; they are copied just below
+            warnings.simplefilter("ignore", UserWarning)
+            out = torch.frombuffer(buf, dtype=torch.uint8)
+        if isinstance(buf, bytes):
+            out = out.clone()
+        out = out.view(dt).reshape(shape)
+    if requires_grad:
+        out.requires_grad_()
+    return out
+
+
 def serialize(value: Any, object_id: Optional[str] = None,
               create_shm: bool = True) -> StoredObject:
     object_id = object_id or new_object_id()
@@ -427,8 +482,10 @@ def serialize(value: Any, object_id: Optional[str] = None,
     prev_ids = getattr(_capture, "ids", None)
     _capture.ids = contained = []
     try:
-        payload = cloudpickle.dumps(value, protocol=5,
-                                    buffer_callback=raw_buffers.append)
+        with io.BytesIO() as f:
+            _Pickler(f, protocol=5,
+                     buffer_callback=raw_buffers.append).dump(value)
+            payload = f.getvalue()
     finally:
         _capture.ids = prev_ids
     inline: list[bytes] = []

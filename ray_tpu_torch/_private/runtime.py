@@ -756,6 +756,7 @@ class Runtime(_context.BaseContext):
         else:
             self.controller.set_actor_state(actor_id, DEAD,
                                             death_cause="worker died")
+            self._release_actor_refs(actor_id)
             with st.lock:
                 dead_tasks = inflight + st.queued
                 st.queued = []
@@ -780,6 +781,7 @@ class Runtime(_context.BaseContext):
         if isinstance(spec, _ActorSpec):
             self.controller.set_actor_state(spec.actor_id, DEAD,
                                             death_cause=reason)
+            self._release_actor_refs(spec.actor_id)
             st = self._actor_state(spec.actor_id)
             with st.lock:
                 st.epoch += 1
@@ -799,6 +801,18 @@ class Runtime(_context.BaseContext):
         self._unpin(spec.pinned_refs)
         self.controller.record_task_event(spec.task_id, spec.name,
                                           "FAILED", error=reason)
+
+    def _release_actor_refs(self, actor_id: str) -> None:
+        """Unpin an actor's constructor refs once it is dead for good
+        (killed, out of restarts, its creation failed or unplaceable);
+        a second call finds nothing left to unpin."""
+        rec = self.controller.get_actor(actor_id)
+        if rec is None:
+            return
+        with self._actor_lock:
+            refs = rec.spec.pinned_refs
+            rec.spec.pinned_refs = []
+        self._unpin(refs)
 
     def _unpin(self, object_ids: list[str]) -> None:
         for oid in object_ids:
@@ -1125,6 +1139,7 @@ class Runtime(_context.BaseContext):
                     rec.spec.max_restarts = 0  # init failure is terminal
                 self.controller.set_actor_state(
                     actor_id, DEAD, death_cause="creation failed")
+                self._release_actor_refs(actor_id)
                 st = self._actor_state(actor_id)
                 with st.lock:
                     dead = st.queued
@@ -1371,6 +1386,7 @@ class Runtime(_context.BaseContext):
                     rec.spec.max_restarts = 0
                 self.controller.set_actor_state(
                     actor_id, DEAD, death_cause="creation failed")
+                self._release_actor_refs(actor_id)
                 st = self._actor_state(actor_id)
                 with st.lock:
                     dead = st.queued
@@ -2150,6 +2166,10 @@ class Runtime(_context.BaseContext):
             return st
 
     def create_actor_from_spec(self, spec: ActorSpec) -> str:
+        # the constructor's refs stay pinned for the actor's life: a
+        # restart resolves them again (released in _release_actor_refs)
+        for oid in spec.pinned_refs:
+            self.controller.pin(oid)
         self.controller.register_actor(spec)
         self._actor_state(spec.actor_id)
         self.cluster.submit(spec)

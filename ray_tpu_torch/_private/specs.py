@@ -151,6 +151,10 @@ class ActorSpec:
     affinity_soft: bool = False
     label_constraints: Any = None
     runtime_env: Optional[dict] = None
+    # the constructor's top-level ObjectRef args: pinned while the actor
+    # may still run its constructor (a restart runs it again), released
+    # when the actor is dead for good
+    pinned_refs: list[str] = field(default_factory=list)
 
 
 @dataclass

@@ -124,6 +124,7 @@ class ActorClass:
             namespace=opts.get("namespace", "default"),
             lifetime=opts.get("lifetime"),
             runtime_env=self._runtime_env(),
+            pinned_refs=pinned,
         )
         _apply_scheduling(spec, opts)
         if ctx.is_driver:

@@ -34,7 +34,9 @@ from ray_tpu_torch.models import decode as _dec
 from ray_tpu_torch.models.config import PRESETS, TransformerConfig
 from ray_tpu_torch.models.convert import init_for_serving
 from ray_tpu_torch.models.transformer import Transformer
+from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.dispatch import resolve_device
+from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.serve.llm.kv_cache import (PageAllocator,
                                               pages_from_budget, pages_needed)
 from ray_tpu_torch.serve.llm.stream import TokenStreamServer
@@ -331,20 +333,34 @@ class EngineCore:
                 **self.counters}
 
 
+def _to_device(tree, device: torch.device):
+    """Every tensor of a params tree (dicts and lists) on `device`, each
+    in its own dtype; the tree fetched from the object store is left
+    behind, so its shared-memory views are released."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, Mapping):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
+
+
 class LLMEngine:
     """Serve deployment class: one continuous-batching engine.
 
-    Port of `LLMEngine` of `ray_tpu/serve/llm/engine.py`, run in
-    process. `model` is a preset name, a TransformerConfig kwargs dict
-    or a config. `weights` is the params dict (e.g. `params_from_jax` or
+    Port of `LLMEngine` of `ray_tpu/serve/llm/engine.py`, in process or
+    as a Serve replica (`serve_llm`). `model` is a preset name, a
+    TransformerConfig kwargs dict or a config. `weights` is an ObjectRef
+    of a params dict (each tensor is moved to `device` in its own
+    dtype), the params dict itself (e.g. `params_from_jax` or
     `init_for_serving` output, already on `device`), or None to
     initialise from `seed`. `device=None` is the card. A step thread
     drives the core; tokens reach consumers over the push stream
     (`stream.py`, subscribe at the `stream` address `generate` returns)
     or through `next_tokens` polling.
 
-    Not yet: an ObjectRef for `weights` (the object plane) and a `mesh`
-    (the parallel layer), ROADMAP queue 1.
+    Not yet: a `mesh` (the parallel layer, ROADMAP queue 1, item 5).
     """
 
     def __init__(self, model="tiny", weights=None, mesh=None,
@@ -360,22 +376,28 @@ class LLMEngine:
         if mesh:
             raise NotImplementedError(
                 "LLMEngine(mesh=...) needs the parallel layer, not ported "
-                "yet (ROADMAP queue 1)")
+                "yet (ROADMAP queue 1, item 5)")
         device = resolve_device(device)
         page_size = int(page_size or CONFIG.llm_page_size)
         max_batch = int(max_batch or CONFIG.llm_max_batch)
         if not num_pages and kv_budget_bytes:
             num_pages = pages_from_budget(config, page_size,
                                           kv_budget_bytes)
+        t0 = time.perf_counter()
         if weights is None:
             params = init_for_serving(Transformer(config), seed, device)
         elif isinstance(weights, Mapping):
             params = weights
+        elif hasattr(weights, "object_id"):
+            import ray_tpu_torch
+            params = _to_device(ray_tpu_torch.get(weights), device)
         else:
-            raise NotImplementedError(
-                f"LLMEngine takes the params dict or None as weights, got "
-                f"{type(weights).__name__}; an ObjectRef needs the object "
-                f"plane, not ported yet (ROADMAP queue 1)")
+            raise TypeError(
+                f"LLMEngine takes an ObjectRef, the params dict or None as "
+                f"weights, got {type(weights).__name__}")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.weights_s = time.perf_counter() - t0
         self.core = EngineCore(config, params, device=device,
                                num_pages=num_pages, page_size=page_size,
                                max_batch=max_batch)
@@ -568,6 +590,16 @@ class LLMEngine:
             st = self.core.stats()
         st["incarnation"] = self.incarnation
         st["stream"] = self._stream.addr if self._stream else None
+        # the port's own instrumentation (the JAX engine has none, so
+        # EngineCore.stats() stays key for key the same): this process's
+        # kernel launches, the seconds the weights took to fetch and
+        # place (or init), and the device's peak allocation
+        st["kernel_launches"] = {"flash_fwd": flash_attention.launches,
+                                 "rms_norm": rms_norm.launches}
+        st["weights_s"] = self.weights_s
+        if self.core.device.type == "cuda":
+            st["device_peak_bytes"] = torch.cuda.max_memory_allocated(
+                self.core.device)
         return st
 
     def __serve_stats__(self) -> dict:

@@ -241,6 +241,28 @@ def test_actor_basic(ray_cluster):
     assert ray_tpu_torch.get(c.read.remote()) == 6
 
 
+def test_actor_built_from_a_dropped_put_ref(ray_cluster):
+    """The caller drops the constructor's ref at once: the runtime pins
+    it for the actor's life (a restart runs the constructor again), so
+    the actor still gets the value, and unpins it once the actor is
+    dead for good."""
+    from ray_tpu_torch._private import context
+    v = np.arange(1 << 16)                  # 512 KiB: an shm segment
+    ref = ray_tpu_torch.put(v)
+    oid = ref.object_id
+    c = Counter.remote(ref)
+    del ref
+    np.testing.assert_array_equal(
+        ray_tpu_torch.get(c.read.remote(), timeout=30), v)
+    controller = context.get_ctx().controller
+    assert oid in controller.pinned_ids()
+    ray_tpu_torch.kill(c)
+    deadline = time.monotonic() + 10
+    while oid in controller.pinned_ids() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert oid not in controller.pinned_ids()
+
+
 def test_actor_ordering(ray_cluster):
     c = Counter.remote()
     refs = [c.inc.remote() for _ in range(10)]

@@ -340,7 +340,8 @@ def test_close_ends_every_thread_and_frees_the_engine():
 def test_engine_refuses_what_the_port_lacks():
     with pytest.raises(NotImplementedError, match="parallel layer"):
         LLMEngine(model="tiny", mesh={"tp": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="object"):
+    # weights: an ObjectRef, the params dict or None, nothing else
+    with pytest.raises(TypeError, match="ObjectRef"):
         LLMEngine(model="tiny", weights=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

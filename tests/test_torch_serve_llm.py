@@ -308,7 +308,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "_private.protocol", "_private.wire", "util.metrics",
                  "_private.runtime", "_private.worker_main",
                  "_private.object_store", "_private.scheduler", "api",
-                 "actor", "native", "serve.llm.stream", "serve.llm.engine"):
+                 "actor", "native", "serve", "serve.llm",
+                 "serve.llm.router", "serve.llm.stream", "serve.llm.engine"):
         assert "ray_tpu_torch." + name in modules, name
     imported, modules = run(
         "import sys, pkgutil, importlib\n"
