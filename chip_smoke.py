@@ -59,7 +59,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      of every kernel per step, a torch.profiler split of one step with
      its device idle share; then loss and backward under remat, full
      against save_attn (launch counts, bitwise equal loss and grads,
-     each step's time).
+     each step's time);
+  9. trainer: the same model and batch through `TorchTrainer`, the
+     user's entry point to training: one `num_gpus=1` worker in a
+     one-rank nccl group, batches from a `ray_tpu_torch.data` Dataset
+     through `iter_torch_batches`, a checkpoint of the params and the
+     AdamW state at step 3 (~5.7 GB, with a checksum of every tensor),
+     the worker killed at step 5 and the group restarted from that
+     checkpoint to step 7: step 0's loss equal to phase 8's first,
+     later losses within a stated tolerance of its same steps, every
+     restored tensor equal to its checksum, 16 / 16 / 16 / 33 launches
+     of the kernels a step in the worker; after `shutdown()` the card's
+     memory is back.
 The last three lines are the card (`nvidia-smi`), the kernels as JSON,
 and `{"ok": true, "device": {...}}`.
 """
@@ -73,6 +84,7 @@ import json
 import os
 import queue
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -148,6 +160,13 @@ TRAIN_STEPS, TRAIN_WARMUP = 20, 2
 #    forward and backward (about 20 tensors) is rounded to bf16 on the
 #    card, and the grads themselves are stored in bf16; 5e-2 of each
 #    grad's max|ref|, and 1e-2 absolute on a loss near log(32000).
+#  * the trainer's losses against train()'s at the same step, after step
+#    0 (which must be equal: the same weights, batch and forward
+#    kernels): the embedding's backward may add a token's rows in
+#    another order (atomics), so a bf16 weight may round one ulp (2^-8
+#    of its value) the other way in a step, and each AdamW step after
+#    it carries the difference on; 2e-2 of the loss allows a few such
+#    roundings a step over the 7 steps compared.
 TOL = {
     "rms_bf16": dict(rtol=2 ** -7, atol=1e-6),
     "rms_f32": dict(rtol=1e-5, atol=1e-5),
@@ -159,6 +178,7 @@ TOL = {
     "autograd_rel_to_max": 2e-2,
     "model_grad_rel_to_max": 5e-2,
     "model_loss_abs": 1e-2,
+    "trainer_loss_rel": 2e-2,
 }
 
 
@@ -1437,6 +1457,308 @@ def train(dev, peaks) -> dict:
     }
 
 
+# The trainer phase: steps of the run, the step whose checkpoint is
+# reported, and the step at which the first attempt's worker dies
+TRAINER_STEPS, TRAINER_CKPT_STEP, TRAINER_DIE_STEP = 8, 3, 5
+
+
+def checksum(t: torch.Tensor) -> int:
+    """A position-weighted sum of a tensor's bits, on its own device
+    (integer arithmetic: it does not depend on the order of the sum)."""
+    flat = t.detach().reshape(-1)
+    ints = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    total, chunk = 0, 1 << 24
+    for i in range(0, ints.numel(), chunk):
+        part = ints[i:i + chunk].to(torch.int64)
+        w = torch.arange(i, i + part.numel(), device=part.device) % 65521 + 1
+        total += int((part * w).sum())
+    return total
+
+
+def train_state_checksums(params, opt) -> list:
+    """`checksum` of every parameter, then of every AdamW state tensor
+    (by parameter, then by name)."""
+    sums = [checksum(t) for t in bench.leaves(params)]
+    state = opt.state_dict()["state"]
+    for i in sorted(state):
+        sums.extend(checksum(state[i][k]) for k in sorted(state[i]))
+    return sums
+
+
+def trainer_loop(config):
+    """The trainer phase's `train_loop_per_worker` (pickled by value from
+    the driver's `__main__`): the worker imports `chip_smoke` from the
+    repo root on its PYTHONPATH and runs `trainer_worker` there."""
+    import chip_smoke
+    chip_smoke.trainer_worker(config)
+
+
+def trainer_worker(config: dict) -> None:
+    """In the train worker: the bench model from seed 0 (or restored from
+    `get_checkpoint()`, every tensor held to the checksum saved with
+    it), then a step a batch from `iter_torch_batches`: `train_step`, an
+    all_reduce of the loss over the group, the launches of each kernel
+    in this process during the step; a checkpoint of the params and the
+    AdamW state at `ckpt_at`; the first attempt dies at `die_at`."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.models.config import TransformerConfig
+    from ray_tpu_torch.train import Checkpoint
+    from ray_tpu_torch.train import checkpoint as ckpt_mod
+    loop_start = time.time()
+    dev = torch.device(config["device"])
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = TransformerConfig(**config["cfg"])
+    model = Transformer(cfg)
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev).add_(1)   # this thread's first device op
+    sync()
+    cuda_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opt = bench.make_optimizer(params)   # the first imports torch._dynamo
+    first = {"loop_start": loop_start, "pid": os.getpid(),
+             "first_op_s": cuda_s, "init_s": init_s,
+             "optimizer_s": time.perf_counter() - t0}
+    restored = rt_train.get_checkpoint()
+    start = 0
+    if restored is not None:
+        t0 = time.perf_counter()
+        state = restored.load_state()
+        first["load_s"] = time.perf_counter() - t0
+        with torch.no_grad():
+            for p, t in zip(bench.leaves(params),
+                            bench.leaves(state["params"])):
+                p.copy_(t)
+        opt.load_state_dict(state["opt"])
+        sync()
+        first["restore_s"] = time.perf_counter() - t0
+        if train_state_checksums(params, opt) != state["checksums"]:
+            raise AssertionError("a restored tensor differs from the "
+                                 "checksum saved with it")
+        first["checksums_equal"] = len(state["checksums"])
+        start = state["step"] + 1
+        del state
+        shutil.rmtree(restored.path, ignore_errors=True)    # a 5.7 GB copy
+    packs = []
+
+    def timed_pack(path, _pack=ckpt_mod.pack_dir):
+        t0 = time.perf_counter()
+        data = _pack(path)
+        packs.append({"pack_s": time.perf_counter() - t0,
+                      "bytes": len(data), "packed_at": time.time()})
+        return data
+    ckpt_mod.pack_dir = timed_pack       # next_result packs through it
+    stats = {}
+    batches = iter(rt_train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=config["batch"], device=dev, stats=stats))
+    for _ in range(start):               # the steps the checkpoint holds
+        next(batches)
+    world = dist.get_world_size()
+    reset_counts()
+    before = kernel_counts()
+    for step in range(start, config["steps"]):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        loss = bench.train_step(model, params, opt, batch).clone()
+        dist.all_reduce(loss)
+        value = loss.item() / world
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernel_counts()
+        metrics = {"step": step, "loss": value, "step_ms": step_ms,
+                   "t": time.time(),
+                   "launches": {k: counts[k] - before[k] for k in counts},
+                   **first}
+        before, first = counts, {}
+        if step == config["die_at"] and restored is None:
+            with open(config["death_file"], "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)
+        ckpt = None
+        if step == config["ckpt_at"]:
+            t0 = time.perf_counter()
+            sums = train_state_checksums(params, opt)
+            metrics["checksum_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ckpt = Checkpoint.from_state(
+                rt_train.make_temp_checkpoint_dir(),
+                {"params": params, "opt": opt.state_dict(), "step": step,
+                 "checksums": sums})
+            metrics["save_s"] = time.perf_counter() - t0
+            metrics["checksums"] = len(sums)
+        elif step == config["ckpt_at"] + 1 and restored is None:
+            deadline = time.monotonic() + 300
+            while not packs and time.monotonic() < deadline:
+                time.sleep(0.05)         # the step before's checkpoint
+            metrics["pack"] = packs[0] if packs else None
+        if step == config["steps"] - 1:
+            batches.close()              # fills `stats`
+            metrics.update(
+                input_wait_s=stats["input_wait_s"],
+                peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                              if on_card else 0.0))
+        rt_train.report(metrics, ckpt)
+
+
+def trainer_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
+                  seq: int = TRAIN_S) -> dict:
+    """The bench model trained through `TorchTrainer`, the user's entry
+    point, from one `num_gpus=1` worker in a one-rank nccl group, with
+    `train()`'s batch fed from a Dataset by `iter_torch_batches`; a
+    checkpoint at step 3 (params and AdamW state, ~5.7 GB), the worker
+    killed at step 5, and a restart from that checkpoint to step 7.
+    Step 0's loss must equal `train()`'s first, later steps within
+    TOL["trainer_loss_rel"] of its same steps; every step launches each
+    kernel as a `train()` step does; after `shutdown()` the card's
+    memory is back within 1 GiB. `dev` is the card; the CPU only
+    rehearses (a gloo group, `platform="cpu"`)."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rt_data
+    from ray_tpu_torch.train import (CheckpointConfig, CheckpointManager,
+                                     FailureConfig, RunConfig, ScalingConfig,
+                                     TorchConfig, TorchTrainer)
+    on_card = dev.type == "cuda"
+    cfg = cfg or bench.bench_config()
+    tokens = bench.make_batch(cfg, batch, seq, "cpu")["tokens"].numpy()
+    ds = rt_data.from_numpy({"tokens": np.tile(tokens, (TRAINER_STEPS, 1))})
+    storage = tempfile.mkdtemp(prefix="rtt_trainer_phase_")
+    death_file = os.path.join(storage, "died")
+    config = {"cfg": dataclasses.asdict(cfg), "batch": batch,
+              "steps": TRAINER_STEPS, "ckpt_at": TRAINER_CKPT_STEP,
+              "die_at": TRAINER_DIE_STEP, "death_file": death_file,
+              "device": "cuda" if on_card else "cpu"}
+    registers = []
+    register_bytes = CheckpointManager.register_bytes
+
+    def timed_register(self, data, metrics=None):
+        t0, at = time.perf_counter(), time.time()
+        out = register_bytes(self, data, metrics)
+        registers.append({"register_s": time.perf_counter() - t0,
+                          "bytes": len(data), "arrived_at": at})
+        return out
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    ray_tpu_torch.init(num_cpus=4)
+    CheckpointManager.register_bytes = timed_register
+    try:
+        fit_at = time.time()
+        result = TorchTrainer(
+            trainer_loop, train_loop_config=config,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card),
+            run_config=RunConfig(
+                name="trainer_phase", storage_path=storage,
+                checkpoint_config=CheckpointConfig(num_to_keep=1),
+                failure_config=FailureConfig(max_failures=1)),
+            backend_config=TorchConfig(
+                distributed=True, platform=None if on_card else "cpu"),
+            datasets={"train": ds}).fit()
+        fit_s = time.time() - fit_at
+    finally:
+        CheckpointManager.register_bytes = register_bytes
+        ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 60
+    while (torch.cuda.mem_get_info()[0] < free0 - 2 ** 30
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    not_back = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 30
+    try:
+        if result.error is not None:
+            raise AssertionError(f"TorchTrainer failed: {result.error!r}")
+        hist = result.metrics_history
+        steps = [m["step"] for m in hist]
+        want = (list(range(TRAINER_DIE_STEP))
+                + list(range(TRAINER_CKPT_STEP + 1, TRAINER_STEPS)))
+        if steps != want:
+            raise AssertionError(f"trainer steps {steps}, expected {want}")
+        restart = TRAINER_DIE_STEP
+        if hist[restart].get("checksums_equal") != hist[
+                TRAINER_CKPT_STEP]["checksums"]:
+            raise AssertionError("the restart did not check every tensor "
+                                 "against its checksum")
+        if hist[0]["loss"] != trained["losses"][0]:
+            raise AssertionError(f"step 0 loss {hist[0]['loss']!r} differs "
+                                 f"from train()'s {trained['losses'][0]!r}")
+        rel = [abs(m["loss"] - trained["losses"][m["step"]])
+               / abs(trained["losses"][m["step"]]) for m in hist]
+        if max(rel) > TOL["trainer_loss_rel"]:
+            raise AssertionError(f"trainer losses {[m['loss'] for m in hist]}"
+                                 f" against train()'s "
+                                 f"{trained['losses'][:TRAINER_STEPS]}")
+        per_step = {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
+                    "flash_dq": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1}
+        for m in hist:
+            if m["launches"] != per_step:
+                raise AssertionError(f"trainer step {m['step']} launched "
+                                     f"{m['launches']}, expected {per_step}")
+        if not_back > 1.0:
+            raise AssertionError(f"{not_back:.2f} GiB of the card not back "
+                                 f"after shutdown")
+        with open(death_file) as f:
+            died = float(f.read())
+        pack = hist[TRAINER_CKPT_STEP + 1]["pack"]
+        if len(registers) != 1 or pack is None:
+            raise AssertionError(f"checkpoints registered {registers}, "
+                                 f"packed {pack}")
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    first, again = hist[0], hist[restart]
+    worker_ms = [m["step_ms"] for m in hist if m is not first
+                 and m is not again]
+    out = {
+        "fit_s": fit_s,
+        # fit() to the worker's loop: placement group, the worker's
+        # spawn and imports, the nccl group's rendezvous, the session
+        "group_start_s": first["loop_start"] - fit_at,
+        "first_op_s": first["first_op_s"], "init_s": first["init_s"],
+        "optimizer_s": first["optimizer_s"],
+        "losses": [m["loss"] for m in hist], "steps": steps,
+        "loss_rel_err_max": max(rel),
+        "step_ms_p50": statistics.median(worker_ms),
+        "train_step_ms_p50": trained["step_ms_p50"],
+        "first_step_ms": first["step_ms"],
+        "input_wait_s": hist[-1]["input_wait_s"],
+        "checkpoint": {
+            "bytes": registers[0]["bytes"],
+            "checksum_s": hist[TRAINER_CKPT_STEP]["checksum_s"],
+            "save_s": hist[TRAINER_CKPT_STEP]["save_s"],
+            "pack_s": pack["pack_s"],
+            "to_driver_s": registers[0]["arrived_at"] - pack["packed_at"],
+            "register_s": registers[0]["register_s"]},
+        "restart": {
+            "to_loop_s": again["loop_start"] - died,
+            "to_first_step_s": again["t"] - died,
+            "first_op_s": again["first_op_s"], "init_s": again["init_s"],
+            "optimizer_s": again["optimizer_s"], "load_s": again["load_s"],
+            "restore_s": again["restore_s"],
+            "checksums_equal": again["checksums_equal"]},
+        "worker_peak_mem_gib": hist[-1]["peak_mem_gib"],
+        "not_returned_gib": not_back,
+        "launches_per_step": per_step,
+        "launches": {k: sum(m["launches"][k] for m in hist)
+                     for k in per_step},
+    }
+    log(f"trainer: group start {out['group_start_s']:.2f} s; worker step "
+        f"p50 {out['step_ms_p50']:.2f} ms against train()'s "
+        f"{out['train_step_ms_p50']:.2f} ms; input wait "
+        f"{out['input_wait_s']:.4f} s")
+    log("trainer: checkpoint " + json.dumps(out["checkpoint"]))
+    log("trainer: restart " + json.dumps(out["restart"]) + f"; worker peak "
+        f"{out['worker_peak_mem_gib']:.2f} GiB")
+    return out
+
+
 def _double(x):
     return 2 * x
 
@@ -1791,6 +2113,10 @@ def main() -> None:
     log("serve_llm: " + json.dumps(llm_served))
     trained = train(dev, peaks)
     log("train: " + json.dumps(trained))
+    gc.collect()
+    torch.cuda.empty_cache()
+    fitted = trainer_phase(trained, dev)
+    log("trainer: " + json.dumps(fitted))
     # launches on each main path, each read just after that path ran
     paths = {"engine_core": served["launches"],
              "llm_engine": served["llm_engine"]["launches"],
@@ -1800,7 +2126,8 @@ def main() -> None:
              "train_remat_full_step":
                  trained["remat_steps"]["launches"]["full"],
              "train_remat_save_attn_step":
-                 trained["remat_steps"]["launches"]["save_attn"]}
+                 trained["remat_steps"]["launches"]["save_attn"],
+             "trainer": fitted["launches"]}
     for name in ("flash_fwd", "flash_dkdv", "flash_dq", "rms_norm"):
         if sum(p[name] for p in paths.values()) == 0:
             raise AssertionError(f"{name} never launched on a main path")

@@ -985,7 +985,11 @@ class ClusterTaskManager:
                     n.recovered_pending = False
                     recovered.append(n.node_id)
                 age = now - n.last_heartbeat
-                if age > dead_s:
+                if age > dead_s and not n.is_head:
+                    # the head node's scheduler runs in this process: a
+                    # stale head heartbeat is this process stalled (a
+                    # multi-GB copy holding the GIL), never a dead node
+                    # (ROADMAP queue 3, item 9)
                     dead.append(n.node_id)
                 elif (suspect_s > 0 and not n.suspect and not n.is_head
                         and age > suspect_s):

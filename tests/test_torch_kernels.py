@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -443,6 +444,108 @@ def test_engine_on_the_card_matches_the_cpu_plain_path(dev):
         got = model.apply(params, toks.to(dev)).cpu()
         want = model.apply(cpu, toks)
     assert (got - want).abs().max() <= 0.05 * want.abs().max()
+
+
+
+@pytest.mark.cuda
+def test_iter_torch_batches_on_the_card(dev):
+    """Batches land on the card with the values and dtypes asked for
+    (a dtype by name, bf16 included), and `stats` counts them."""
+    from ray_tpu_torch import data as rd
+    x = np.arange(64 * 8).reshape(64, 8)
+    ds = rd.from_numpy({"tokens": x, "f": x * 0.5})
+    stats = {}
+    got = list(ds.iterator().iter_torch_batches(
+        batch_size=16, dtypes={"tokens": "int32", "f": torch.bfloat16},
+        stats=stats))
+    assert len(got) == 4 and stats["num_batches"] == 4
+    for i, b in enumerate(got):
+        assert b["tokens"].device == dev and b["f"].device == dev
+        assert b["tokens"].dtype == torch.int32
+        assert b["f"].dtype == torch.bfloat16
+        rows = x[16 * i:16 * (i + 1)]
+        assert torch.equal(b["tokens"].cpu(),
+                           torch.from_numpy(rows).to(torch.int32))
+        assert torch.equal(b["f"].cpu(),
+                           torch.from_numpy(rows * 0.5).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_iter_torch_batches_a_kernel_at_once_sees_the_whole_batch(dev):
+    """Each batch (64 MiB, copied on the side stream) is read by a
+    kernel on the consumer's stream the moment it is handed out, while
+    the next batch's copy is in flight: every sum must be the batch's
+    own, so the consumer's stream waited on the copy."""
+    from ray_tpu_torch import data as rd
+    rows, cols, n = 512, 16384, 6
+    x = np.arange(rows * n, dtype=np.int64)[:, None].repeat(cols, 1)
+    ds = rd.from_numpy({"x": x})
+    sums = []
+    for b in ds.iterator().iter_torch_batches(batch_size=rows):
+        sums.append(b["x"].sum())                 # queued at once
+        torch.cuda._sleep(1_000_000)              # a busy step
+    got = [int(s) for s in sums]
+    want = [int(x[rows * i:rows * (i + 1)].sum()) for i in range(n)]
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_iter_torch_batches_abandoned_consumer_retires_threads(dev):
+    import threading
+    import time
+
+    from ray_tpu_torch import data as rd
+
+    def data_threads():
+        return [t for t in threading.enumerate()
+                if t.name.startswith(("data-prefetch", "data-producer"))]
+    ds = rd.from_numpy({"x": np.arange(4096)})
+    it = iter(ds.iterator().iter_torch_batches(batch_size=8,
+                                               prefetch_depth=1))
+    assert next(it)["x"].device == dev
+    it.close()                       # abandon mid-stream
+    deadline = time.time() + 5
+    while data_threads() and time.time() < deadline:
+        time.sleep(0.05)
+    assert not data_threads()
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_card_params_and_adamw_is_exact(dev,
+                                                                 tmp_path):
+    """bf16 params on the card and their AdamW `state_dict` after a
+    training step through the kernels: saved, loaded and moved back to
+    the card, every tensor is bitwise equal, and an optimizer loaded
+    from the state steps exactly as the original."""
+    from ray_tpu_torch.train import Checkpoint
+    cfg = dataclasses.replace(tiny(), d_model=256, n_heads=4, n_kv_heads=2,
+                              d_ff=512, dtype="bfloat16",
+                              param_dtype="bfloat16")
+    model = Transformer(cfg)
+    params = model.init(0, device=dev)
+    opt = bench.make_optimizer(params)
+    batch = bench.make_batch(cfg, 2, 128, dev)
+    bench.train_step(model, params, opt, batch)
+    ckpt = Checkpoint.from_state(str(tmp_path / "c"),
+                                 {"params": params, "opt": opt.state_dict()})
+    back = ckpt.load_state()
+    got = [t.to(dev) for t in bench.leaves(back["params"])]
+    for a, b in zip(got, bench.leaves(params)):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    for i, st in opt.state_dict()["state"].items():
+        for k, v in st.items():
+            assert torch.equal(back["opt"]["state"][i][k].to(v.device), v)
+    for p in got:
+        p.requires_grad_(True)
+    opt2 = torch.optim.AdamW(got, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+    opt2.load_state_dict(back["opt"])
+    for p, q in zip(bench.leaves(params), got):
+        p.grad = q.grad = torch.full_like(p, 0.25)
+    opt.step()
+    opt2.step()
+    for p, q in zip(bench.leaves(params), got):
+        assert torch.equal(p, q)
 
 
 # ---------------------------------------------------------- no card needed

@@ -112,6 +112,31 @@ def test_num_gpus_beyond_the_cards_stays_infeasible(port):
     ray_tpu_torch.cancel(ref)
 
 
+def test_a_stalled_driver_keeps_its_head_node_alive(port):
+    """The head node's scheduler runs in the driver, which also sweeps
+    liveness: when the driver stalls past `heartbeat_timeout_s` (a
+    5.7 GB checkpoint copied under the GIL), the head's heartbeat is
+    stale, and the sweep declared the head dead, killing every worker
+    on it and leaving no node for a placement group (ROADMAP queue 3,
+    item 9). Holding the head scheduler's lock keeps its loop from
+    heartbeating while the sweep runs."""
+    from ray_tpu_torch._private import context
+    from ray_tpu_torch.util.placement_group import (placement_group,
+                                                    remove_placement_group)
+    cluster = context.get_ctx().cluster
+    head = next(n for n in cluster.alive_nodes() if n.is_head)
+    with head.scheduler._cv:
+        head.last_heartbeat -= 60.0           # a minute without a beat
+        cluster._sweep_liveness()
+    assert head.alive
+    assert cluster.liveness_counters["deaths"] == 0
+    pg = placement_group([{"CPU": 1.0}])
+    try:
+        assert pg.wait(timeout_seconds=30)
+    finally:
+        remove_placement_group(pg)
+
+
 @pytest.mark.parametrize("var, devices, uuids, visible", [
     ("", 2, [], 0),
     ("0", 2, [], 1),
