@@ -70,6 +70,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      later losses within a stated tolerance of its same steps, every
      restored tensor equal to its checksum, 16 / 16 / 16 / 33 launches
      of the kernels a step in the worker; after `shutdown()` the card's
+     memory is back;
+ 10. elastic: the same model and batch through the elastic
+     `TorchTrainer` (`ScalingConfig(elastic=ElasticConfig(...))`) across
+     a node's death: a head with no GPU, the worker on node agent A
+     (a `ray_tpu_torch._private.node_agent` process owning the card's
+     `GPU: 1`), a checkpoint at step 3, agent A SIGKILLed after step 5
+     (its worker gone and the card's memory back within a bound), then
+     agent B, where the loop forms a new group whose worker restores
+     the checkpoint through the object plane and trains to step 7:
+     every loss on both nodes equal to phase 8's at the same step bit
+     for bit, each step once in `metrics_history`, every restored
+     tensor equal to its checksum, 16 / 16 / 16 / 33 launches a step on
+     both nodes, the restore's broadcast to B complete and its route
+     (TCP or mapped in place) printed; after `shutdown()` the card's
      memory is back.
 The last three lines are the card (`nvidia-smi`), the kernels as JSON,
 and `{"ok": true, "device": {...}}`.
@@ -1759,6 +1773,418 @@ def trainer_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
     return out
 
 
+# The elastic phase: steps of the run, the step whose checkpoint is
+# reported, the step after whose report agent A is killed, and the bounds
+# (s) for A's worker to be gone with the card's memory back, and for an
+# agent to register
+ELASTIC_STEPS, ELASTIC_CKPT_STEP, ELASTIC_KILL_STEP = 8, 3, 5
+ELASTIC_GONE_S, ELASTIC_AGENT_S = 30.0, 60.0
+
+
+def elastic_loop(config):
+    """The elastic phase's `train_loop_per_worker` (pickled by value from
+    the driver's `__main__`): the worker imports `chip_smoke` from the
+    repo root on its PYTHONPATH and runs `elastic_worker` there."""
+    import chip_smoke
+    chip_smoke.elastic_worker(config)
+
+
+def elastic_worker(config: dict) -> None:
+    """In the elastic train worker, on an agent's node: the bench model
+    from seed 0 (or restored from `get_checkpoint()`, every tensor held
+    to the checksum saved with it), then a step a batch from
+    `iter_torch_batches`, as `trainer_worker`; each step's node, loss,
+    time and launches also go to the log file `config["log"]`, replayed
+    steps included. A checkpoint at `ckpt_at`; in the first group, once
+    the report of `kill_at` has returned, the worker writes its pid to
+    `config["at_kill"]` and waits for its node to be killed."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.models.config import TransformerConfig
+    from ray_tpu_torch.train import Checkpoint
+    loop_start = time.time()
+    node = os.environ.get("RAY_TPU_NODE_ID")
+    dev = torch.device(config["device"])
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = TransformerConfig(**config["cfg"])
+    model = Transformer(cfg)
+    params = model.init(0, device=dev)
+    opt = bench.make_optimizer(params)
+    first = {"loop_start": loop_start, "pid": os.getpid(), "node": node}
+    restored = rt_train.get_checkpoint()
+    start = 0
+    if restored is not None:
+        t0 = time.perf_counter()
+        state = restored.load_state()
+        first["load_s"] = time.perf_counter() - t0
+        with torch.no_grad():
+            for p, t in zip(bench.leaves(params),
+                            bench.leaves(state["params"])):
+                p.copy_(t)
+        opt.load_state_dict(state["opt"])
+        sync()
+        first["restore_s"] = time.perf_counter() - t0
+        if train_state_checksums(params, opt) != state["checksums"]:
+            raise AssertionError("a restored tensor differs from the "
+                                 "checksum saved with it")
+        first["checksums_equal"] = len(state["checksums"])
+        start = state["step"] + 1
+        del state
+        shutil.rmtree(restored.path, ignore_errors=True)    # a 5.7 GB copy
+    batches = iter(rt_train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=config["batch"], device=dev))
+    for _ in range(start):               # the steps the checkpoint holds
+        next(batches)
+    world = dist.get_world_size()
+    reset_counts()
+    before = kernel_counts()
+    for step in range(start, config["steps"]):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        loss = bench.train_step(model, params, opt, batch).clone()
+        dist.all_reduce(loss)
+        value = loss.item() / world
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernel_counts()
+        metrics = {"step": step, "loss": value, "step_ms": step_ms,
+                   "t": time.time(), "node": node,
+                   "launches": {k: counts[k] - before[k] for k in counts},
+                   **first}
+        before, first = counts, {}
+        with open(config["log"], "a") as f:
+            f.write(json.dumps(metrics) + "\n")
+        ckpt = None
+        if step == config["ckpt_at"] and restored is None:
+            sums = train_state_checksums(params, opt)
+            ckpt = Checkpoint.from_state(
+                rt_train.make_temp_checkpoint_dir(),
+                {"params": params, "opt": opt.state_dict(), "step": step,
+                 "checksums": sums})
+            metrics["checksums"] = len(sums)
+        if step == config["steps"] - 1:
+            metrics["peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30 if on_card else 0.0)
+        rt_train.report(metrics, ckpt)
+        if step == config["kill_at"] and restored is None:
+            # the driver holds this step's report: its node dies now
+            with open(config["at_kill"] + ".tmp", "w") as f:
+                f.write(str(os.getpid()))
+            os.replace(config["at_kill"] + ".tmp", config["at_kill"])
+            time.sleep(300)
+            raise RuntimeError("the worker's node was not killed")
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether process `pid` still runs (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def wait_until(pred, timeout: float, what: str, poll: float = 0.05) -> float:
+    """Poll `pred` until it holds; the wall clock when it did. Raises
+    after `timeout` seconds."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {timeout:.0f} s")
+        time.sleep(poll)
+    return time.time()
+
+
+def start_agent(rt, num_gpus: int, resources=None) -> tuple:
+    """A node agent (`python -m ray_tpu_torch._private.node_agent`) with
+    `num_gpus` of GPU: the agent and its start (s, to registered)."""
+    from ray_tpu_torch.cluster_utils import NodeAgentProcess
+    t0 = time.time()
+    agent = NodeAgentProcess(num_cpus=2, num_gpus=num_gpus,
+                             resources=resources)
+
+    def registered():
+        node = rt.cluster.get_node(agent.node_id)
+        return node is not None and node.alive
+    try:
+        at = wait_until(registered, ELASTIC_AGENT_S,
+                        f"agent {agent.node_id} registered")
+    except BaseException:
+        agent.kill()
+        raise
+    return agent, at - t0
+
+
+def elastic_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
+                  seq: int = TRAIN_S) -> dict:
+    """The bench model trained through the elastic `TorchTrainer`
+    (`ScalingConfig(elastic=ElasticConfig(...))`) across a node's death:
+    the head owns no GPU, agent A (a node agent process with the card's
+    `GPU: 1`) hosts the worker, which checkpoints at step 3; after step
+    5's report agent A is SIGKILLed, its worker must be gone and the
+    card's memory back within ELASTIC_GONE_S, then agent B starts and
+    the elastic loop forms a new group there, whose worker restores from
+    the checkpoint (through the object plane to B's store) and trains
+    to step 7. Every step's loss, on A and on B, replayed ones included,
+    must equal `train()`'s at the same step bit for bit, every restored
+    tensor its checksum, each step must launch each kernel as a
+    `train()` step does, `metrics_history` must hold each step once, and
+    after `shutdown()` the card's memory is back within 1 GiB. `dev` is
+    the card; the CPU only rehearses (gloo, agents with no GPU)."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rt_data
+    from ray_tpu_torch._private.object_transfer import OBJECT_PLANE_STATS
+    from ray_tpu_torch.train import (CheckpointConfig, CheckpointManager,
+                                     ElasticConfig, RunConfig, ScalingConfig,
+                                     TorchConfig, TorchTrainer)
+    from ray_tpu_torch.train import elastic as elastic_mod
+    on_card = dev.type == "cuda"
+    cfg = cfg or bench.bench_config()
+    tokens = bench.make_batch(cfg, batch, seq, "cpu")["tokens"].numpy()
+    ds = rt_data.from_numpy({"tokens": np.tile(tokens, (ELASTIC_STEPS, 1))})
+    storage = tempfile.mkdtemp(prefix="rtt_elastic_phase_")
+    config = {"cfg": dataclasses.asdict(cfg), "batch": batch,
+              "steps": ELASTIC_STEPS, "ckpt_at": ELASTIC_CKPT_STEP,
+              "kill_at": ELASTIC_KILL_STEP,
+              "at_kill": os.path.join(storage, "at_kill"),
+              "log": os.path.join(storage, "steps.jsonl"),
+              "device": "cuda" if on_card else "cpu"}
+    # on the CPU no GPU keeps the worker off the head: a resource does
+    gpus, only_agents = (1, None) if on_card else (0, {"agent": 1.0})
+    marks: dict = {"capacity": [], "pack": [], "bcast": [], "register": []}
+    originals = {}
+
+    def timed(owner, name, key, size=None):
+        """Wrap `owner.name` for the phase: each call's wall clock, and
+        `size(out, args)` (else its result), the head's bytes served
+        over the object plane during it."""
+        fn = getattr(owner, name)
+        originals[owner, name] = fn
+
+        def wrapper(*args, **kwargs):
+            t0, served = time.time(), OBJECT_PLANE_STATS["serve_bytes"]
+            out = fn(*args, **kwargs)
+            marks[key].append({
+                "t0": t0, "t1": time.time(),
+                "out": size(out, args) if size else out,
+                "served": OBJECT_PLANE_STATS["serve_bytes"] - served})
+            return out
+        setattr(owner, name, wrapper)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    phase_at = time.time()
+    rt = ray_tpu_torch.init(num_cpus=4, num_gpus=0)
+    agents, watch = [], {}
+    try:
+        if ray_tpu_torch.cluster_resources().get("GPU", 0) != 0:
+            raise AssertionError("the head node holds a GPU")
+        agent_a, watch["a_start_s"] = start_agent(rt, gpus, only_agents)
+        agents.append(agent_a)
+        if on_card and ray_tpu_torch.cluster_resources().get("GPU") != 1:
+            raise AssertionError(f"GPU {ray_tpu_torch.cluster_resources()} "
+                                 f"after agent A joined, expected 1")
+
+        def kill_a_then_start_b():
+            try:
+                wait_until(lambda: os.path.exists(config["at_kill"]), 900,
+                           "the worker reached its kill step", poll=0.2)
+                with open(config["at_kill"]) as f:
+                    pid = int(f.read())
+                watch["kill_at"] = time.time()
+                agent_a.kill()           # SIGKILL: an unannounced death
+                watch["dead_at"] = wait_until(
+                    lambda: not rt.cluster.get_node(agent_a.node_id).alive,
+                    ELASTIC_GONE_S, "the head marked agent A dead")
+                watch["worker_gone_at"] = wait_until(
+                    lambda: not pid_alive(pid), ELASTIC_GONE_S,
+                    "agent A's worker gone")
+                watch["memory_back_at"] = wait_until(
+                    lambda: torch.cuda.mem_get_info()[0] >= free0 - 2 ** 30,
+                    ELASTIC_GONE_S, "the card's memory back from A's worker")
+                watch["b_started_at"] = time.time()
+                agent_b, watch["b_start_s"] = start_agent(rt, gpus,
+                                                          only_agents)
+                agents.append(agent_b)
+            except BaseException as e:   # raised again after fit()
+                watch["error"] = e
+        killer = threading.Thread(target=kill_a_then_start_b, daemon=True)
+        killer.start()
+        timed(elastic_mod._ElasticRun, "_await_capacity", "capacity")
+        timed(elastic_mod, "pack_dir", "pack", lambda out, a: len(out))
+        timed(ray_tpu_torch, "broadcast", "bcast")
+        timed(CheckpointManager, "register_bytes", "register",
+              lambda out, a: len(a[1]))
+        plane0 = dict(OBJECT_PLANE_STATS)
+        fit_at = time.time()
+        result = TorchTrainer(
+            elastic_loop, train_loop_config=config,
+            scaling_config=ScalingConfig(
+                num_workers=1, use_gpu=on_card,
+                resources_per_worker=(None if on_card
+                                      else {"CPU": 1.0, **only_agents}),
+                elastic=ElasticConfig(min_workers=1, max_workers=1,
+                                      checkpoint_every_n_steps=0)),
+            run_config=RunConfig(
+                name="elastic_phase", storage_path=storage,
+                checkpoint_config=CheckpointConfig(num_to_keep=1)),
+            backend_config=TorchConfig(
+                distributed=True, platform=None if on_card else "cpu"),
+            datasets={"train": ds}).fit()
+        fit_s = time.time() - fit_at
+        plane = {k: OBJECT_PLANE_STATS[k] - plane0[k] for k in plane0}
+        nodes_plane = rt.state_op("object_plane_stats")["nodes"]
+        liveness = dict(rt.cluster.liveness_counters)
+        killer.join(timeout=ELASTIC_AGENT_S)
+    finally:
+        for (owner, name), fn in originals.items():
+            setattr(owner, name, fn)
+        ray_tpu_torch.shutdown()
+        for agent in agents:
+            agent.terminate()
+        for agent in agents:
+            agent.wait(30)
+    deadline = time.monotonic() + 60
+    while (torch.cuda.mem_get_info()[0] < free0 - 2 ** 30
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    not_back = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 30
+    phase_s = time.time() - phase_at
+    try:
+        if "error" in watch:
+            raise watch["error"]
+        if result.error is not None:
+            raise AssertionError(f"elastic TorchTrainer failed: "
+                                 f"{result.error!r}")
+        if len(agents) != 2 or liveness["deaths"] != 1:
+            raise AssertionError(f"agents {[a.node_id for a in agents]}, "
+                                 f"liveness {liveness}, watch {watch}: "
+                                 f"expected one death, agent A's, and "
+                                 f"agent B after it")
+        with open(config["log"]) as f:
+            log_rows = [json.loads(line) for line in f]
+        hist = result.metrics_history
+        steps = [m["step"] for m in hist]
+        if steps != list(range(ELASTIC_STEPS)):
+            raise AssertionError(f"elastic steps {steps}, expected each of "
+                                 f"0..{ELASTIC_STEPS - 1} once")
+        node_a, node_b = agents[0].node_id, agents[1].node_id
+        on_a = [r for r in log_rows if r["node"] == node_a]
+        on_b = [r for r in log_rows if r["node"] == node_b]
+        if ([r["step"] for r in on_a] != list(range(ELASTIC_KILL_STEP + 1))
+                or [r["step"] for r in on_b] != list(
+                    range(ELASTIC_CKPT_STEP + 1, ELASTIC_STEPS))
+                or len(on_a) + len(on_b) != len(log_rows)):
+            raise AssertionError(
+                f"steps by node {[(r['node'], r['step']) for r in log_rows]}"
+                f"; agent A {node_a}, agent B {node_b}")
+        for r in log_rows + hist:
+            if r["loss"] != trained["losses"][r["step"]]:
+                raise AssertionError(
+                    f"step {r['step']} on {r['node']}: loss {r['loss']!r}, "
+                    f"train()'s {trained['losses'][r['step']]!r}")
+        per_step = {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
+                    "flash_dq": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1}
+        for r in log_rows:
+            if r["launches"] != per_step:
+                raise AssertionError(f"step {r['step']} on {r['node']} "
+                                     f"launched {r['launches']}, expected "
+                                     f"{per_step}")
+        if on_b[0].get("checksums_equal") != hist[
+                ELASTIC_CKPT_STEP]["checksums"]:
+            raise AssertionError("the restore on B did not check every "
+                                 "tensor against its checksum")
+        el = result.artifacts["elastic"]
+        bcast = el["restore_broadcast"]
+        if (el["reshapes"] != 1 or el["restores"] != 1
+                or len(marks["bcast"]) != 1 or bcast is None
+                or bcast["failed"] or bcast.get("timed_out")
+                or bcast["completed"] != bcast["nodes"]
+                or bcast["nodes"] < 1):
+            raise AssertionError(f"elastic artifacts {el}: the restore's "
+                                 f"broadcast to B did not complete")
+        if not_back > 1.0:
+            raise AssertionError(f"{not_back:.2f} GiB of the card not back "
+                                 f"after shutdown")
+        if len(marks["register"]) != 1 or len(marks["pack"]) != 1:
+            raise AssertionError(f"checkpoints registered "
+                                 f"{marks['register']}, packed "
+                                 f"{marks['pack']}")
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    pack, bc = marks["pack"][0], marks["bcast"][0]
+    waited = marks["capacity"][1]
+    nbytes = pack["out"]
+    kill_at = watch["kill_at"]
+    served = bc["served"]
+    out = {
+        "phase_s": phase_s, "fit_s": fit_s,
+        "agent_a_start_s": watch["a_start_s"],
+        "agent_b_start_s": watch["b_start_s"],
+        "node_a": node_a, "node_b": node_b,
+        "kill_to_dead_s": watch["dead_at"] - kill_at,
+        "kill_to_worker_gone_s": watch["worker_gone_at"] - kill_at,
+        "kill_to_memory_back_s": watch["memory_back_at"] - kill_at,
+        "kill_to_b_started_s": watch["b_started_at"] - kill_at,
+        "capacity_wait_s": waited["t1"] - waited["t0"],
+        # the loop's capacity to its restore: placement, the worker's
+        # spawn and imports, the nccl group's rendezvous on B
+        "group_start_on_b_s": pack["t0"] - waited["t1"],
+        "checkpoint_bytes": marks["register"][0]["out"],
+        "checkpoint_register_s": (marks["register"][0]["t1"]
+                                  - marks["register"][0]["t0"]),
+        "restore": {
+            "bytes": nbytes, "pack_s": pack["t1"] - pack["t0"],
+            "put_s": bc["t0"] - pack["t1"],
+            "broadcast_s": bc["t1"] - bc["t0"],
+            "broadcast_gb_per_s": nbytes / (bc["t1"] - bc["t0"]) / 1e9,
+            "broadcast": bc["out"],
+            # the broadcast's end to the worker's loop on B: its get of
+            # the ref from B's store, the untar, the session's start
+            "fetch_unpack_s": on_b[0]["loop_start"] - bc["t1"],
+            "load_s": on_b[0]["load_s"], "restore_s": on_b[0]["restore_s"],
+            "checksums_equal": on_b[0]["checksums_equal"]},
+        # how the restore's bytes reached B: over TCP when the head
+        # served them during the broadcast (its OBJECT_PLANE_STATS),
+        # else mapped in place
+        "restore_route": "tcp" if served >= nbytes else "mapped in place",
+        "head_object_plane": plane, "liveness": liveness,
+        "nodes_object_plane": nodes_plane,
+        "death_to_first_step_on_b_s": on_b[0]["t"] - kill_at,
+        "losses": [m["loss"] for m in hist], "steps": steps,
+        "step_ms_p50_on_a": statistics.median(
+            r["step_ms"] for r in on_a[1:]),
+        "step_ms_p50_on_b": statistics.median(
+            r["step_ms"] for r in on_b[1:]),
+        "train_step_ms_p50": trained["step_ms_p50"],
+        "worker_peak_mem_gib": hist[-1]["peak_mem_gib"],
+        "not_returned_gib": not_back,
+        "launches_per_step": per_step,
+        "launches": {k: sum(r["launches"][k] for r in log_rows)
+                     for k in per_step},
+        "elastic": {k: v for k, v in el.items() if k != "restore_broadcast"},
+    }
+    log(f"elastic: agent A start {out['agent_a_start_s']:.2f} s, agent B "
+        f"start {out['agent_b_start_s']:.2f} s; kill to A dead "
+        f"{out['kill_to_dead_s']:.2f} s, to its worker gone "
+        f"{out['kill_to_worker_gone_s']:.2f} s, to the card's memory back "
+        f"{out['kill_to_memory_back_s']:.2f} s")
+    log(f"elastic: capacity wait {out['capacity_wait_s']:.2f} s, group "
+        f"start on B {out['group_start_on_b_s']:.2f} s; death to the first "
+        f"step on B {out['death_to_first_step_on_b_s']:.2f} s")
+    log("elastic: restore " + json.dumps(out["restore"]))
+    log(f"elastic: restore route {out['restore_route']} (head served "
+        f"{served} of {nbytes} bytes)")
+    log(f"elastic: step p50 on A {out['step_ms_p50_on_a']:.2f} ms, on B "
+        f"{out['step_ms_p50_on_b']:.2f} ms, train()'s "
+        f"{out['train_step_ms_p50']:.2f} ms; phase {phase_s:.1f} s")
+    return out
+
+
 def _double(x):
     return 2 * x
 
@@ -2117,6 +2543,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     fitted = trainer_phase(trained, dev)
     log("trainer: " + json.dumps(fitted))
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic = elastic_phase(trained, dev)
+    log("elastic: " + json.dumps(elastic))
     # launches on each main path, each read just after that path ran
     paths = {"engine_core": served["launches"],
              "llm_engine": served["llm_engine"]["launches"],
@@ -2127,7 +2557,8 @@ def main() -> None:
                  trained["remat_steps"]["launches"]["full"],
              "train_remat_save_attn_step":
                  trained["remat_steps"]["launches"]["save_attn"],
-             "trainer": fitted["launches"]}
+             "trainer": fitted["launches"],
+             "elastic_worker": elastic["launches"]}
     for name in ("flash_fwd", "flash_dkdv", "flash_dq", "rms_norm"):
         if sum(p[name] for p in paths.values()) == 0:
             raise AssertionError(f"{name} never launched on a main path")

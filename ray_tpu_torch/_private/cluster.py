@@ -106,7 +106,8 @@ class ClusterTaskManager:
         # per-connection reader threads — dict += is a non-atomic
         # read-modify-write, so increments go through one small lock
         self.liveness_counters: Dict[str, int] = {
-            "suspected": 0, "recovered": 0, "deaths": 0, "fenced": 0}
+            "suspected": 0, "recovered": 0, "deaths": 0, "fenced": 0,
+            "stalls_credited": 0}
         self._counter_lock = threading.Lock()
         # node_id -> rejoin deadline: rehydrated agents expected to
         # re-register after a head restart (reference: raylets reconnect
@@ -940,13 +941,36 @@ class ClusterTaskManager:
 
     # ----------------------------------------------------- node failure
     def _monitor_loop(self) -> None:
-        """GcsHealthCheckManager parity: staleness-based liveness."""
+        """GcsHealthCheckManager parity: staleness-based liveness.
+
+        A tick that comes late by more than half a period means this
+        process stalled (a multi-GB copy in one C call holds the GIL):
+        no heartbeat was read meanwhile, so the stall is credited to
+        every node's heartbeat before the sweep, and only time this
+        process could listen counts against a node (ROADMAP queue 3,
+        item 12)."""
+        period = 0.5
+        last = time.monotonic()
         while self._running:
-            time.sleep(0.5)
+            time.sleep(period)
+            now = time.monotonic()
+            late, last = now - last - period, now
             try:
+                if late > period / 2:
+                    self._credit_stall(late, now)
                 self._sweep_liveness()
             except Exception:
                 log.exception("liveness sweep failed")
+
+    def _credit_stall(self, stalled_s: float, now: float) -> None:
+        """Move every live node's last heartbeat `stalled_s` later (never
+        past `now`): a heartbeat that arrived while this process could
+        not read it must not age the node toward a death."""
+        self.bump_liveness("stalls_credited")
+        with self._lock:
+            for n in self._nodes.values():
+                if n.alive:
+                    n.last_heartbeat = min(now, n.last_heartbeat + stalled_s)
 
     def _sweep_liveness(self) -> None:
         """One liveness pass (r17: alive -> SUSPECT -> dead instead of
@@ -985,11 +1009,14 @@ class ClusterTaskManager:
                     n.recovered_pending = False
                     recovered.append(n.node_id)
                 age = now - n.last_heartbeat
-                if age > dead_s and not n.is_head:
-                    # the head node's scheduler runs in this process: a
-                    # stale head heartbeat is this process stalled (a
-                    # multi-GB copy holding the GIL), never a dead node
-                    # (ROADMAP queue 3, item 9)
+                if age > dead_s and not (
+                        n.is_head and getattr(n.scheduler, "_running", False)):
+                    # the head node's scheduler runs in this process:
+                    # while it runs, a stale head heartbeat is this
+                    # process stalled (a multi-GB copy holding the GIL),
+                    # never a dead node (ROADMAP queue 3, item 9); a head
+                    # node killed by `remove_node(graceful=False)` has
+                    # stopped it and dies as any other (item 11)
                     dead.append(n.node_id)
                 elif (suspect_s > 0 and not n.suspect and not n.is_head
                         and age > suspect_s):

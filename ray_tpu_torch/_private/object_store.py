@@ -469,9 +469,43 @@ def _rebuild_tensor(buf, dtype: str, shape: tuple, requires_grad: bool):
     return out
 
 
+class _OutOfBandBytes:
+    """A `bytes` or `bytearray` value that pickles as one out-of-band
+    buffer: the pickler writes `bytes` in band and never offers them to
+    `reducer_override`, so `serialize` wraps a large one in this."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data):
+        self.data = data
+
+    def __reduce_ex__(self, protocol):
+        return (_rebuild_bytes, (pickle.PickleBuffer(self.data),
+                                 type(self.data) is bytearray))
+
+
+def _rebuild_bytes(buf, mutable: bool):
+    """The `bytes` (or `bytearray`) that `_OutOfBandBytes` carried, copied
+    out of `buf` (a shared-memory mapping when it travelled out of band)."""
+    return bytearray(buf) if mutable else bytes(buf)
+
+
 def serialize(value: Any, object_id: Optional[str] = None,
               create_shm: bool = True) -> StoredObject:
+    """Pickle `value` into a StoredObject: every buffer of at least
+    `inline_threshold_bytes` (an array's, a tensor's) out of band in its
+    own shm segment, the rest inline.
+
+    A `bytes` or `bytearray` value of at least `inline_threshold_bytes`
+    travels out of band too, as one buffer, and `deserialize` gives back
+    an equal object of the same type. Only the value itself is covered:
+    `bytes` nested inside a container (a tuple, a list, a dict) are
+    pickled in band, so a frame over `wire_max_frame_bytes` still fails
+    for them (ROADMAP queue 3)."""
     object_id = object_id or new_object_id()
+    if (type(value) in (bytes, bytearray)
+            and len(value) >= _CFG.inline_threshold_bytes):
+        value = _OutOfBandBytes(value)
     raw_buffers: list[pickle.PickleBuffer] = []
     from ray_tpu_torch._private.refs import _capture
     # Save/restore the enclosing capture list instead of resetting to

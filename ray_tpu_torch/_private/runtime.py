@@ -3001,8 +3001,8 @@ def init(num_cpus: Optional[float] = None, num_gpus: Optional[float] = None,
     this process would see, `detect_num_gpus`) becomes the head node's
     ``GPU`` resource. With bind_host="0.0.0.0" (or env
     RAY_TPU_BIND_HOST) the listener accepts remote node agents;
-    rt.address carries the (host, port) to hand to agents (the port's
-    node agent is ROADMAP.md, queue 1, item 3). address="host:port",
+    rt.address carries the (host, port) to hand to agents
+    (``python -m ray_tpu_torch._private.node_agent``). address="host:port",
     which connects to an existing head as a remote driver (the Ray
     Client analogue), raises NotImplementedError until util.client is
     taken (queue 1, item 11)."""

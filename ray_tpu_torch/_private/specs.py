@@ -195,16 +195,28 @@ def pickle_callable(fn: Any) -> tuple[str, bytes]:
     return function_id(data), data
 
 
-def extract_ref_args(args: tuple, kwargs: dict):
+def extract_ref_args(args: tuple, kwargs: dict, keep: list):
     """Replace top-level ObjectRef args with RefMarkers; return pinned ids.
 
     Nested refs (inside lists/dicts/dataclasses) pass through pickled and
     arrive as borrowed ObjectRefs, matching reference semantics where only
-    top-level refs are resolved to values before execution."""
+    top-level refs are resolved to values before execution.
+
+    A top-level `bytes` or `bytearray` arg of at least
+    `inline_threshold_bytes` is `put` in the object store and passed as a
+    RefMarker too, so it travels out of band and not inside the spec's
+    frame (which `wire_max_frame_bytes` bounds). Its ObjectRef goes into
+    `keep`: the caller holds it until the submit has pinned the id."""
+    from ray_tpu_torch._private.config import CONFIG
     from ray_tpu_torch._private.refs import ObjectRef
     pinned: list[str] = []
 
     def conv(v):
+        if (type(v) in (bytes, bytearray)
+                and len(v) >= CONFIG.inline_threshold_bytes):
+            from ray_tpu_torch._private import context
+            v = context.get_ctx().put(v)
+            keep.append(v)
         if isinstance(v, ObjectRef):
             pinned.append(v.object_id)
             return RefMarker(v.object_id)

@@ -331,6 +331,52 @@ def _revert_runtime_env(undo: dict) -> None:
             pass
 
 
+class _StealLedger:
+    """Which of a worker's queued task entries the driver stole back
+    (UNQUEUE_TASK). Counted per task id: the driver may steal a task,
+    then dispatch the same task id to this worker again and steal that
+    copy too, so two stale entries wait in the FIFO. One tombstone per
+    task id (the JAX package's set) skipped only the first, and the
+    second ran here as well as where the task was placed: a duplicate
+    execution that could block its worker for good, with tasks
+    pipelined behind it (ROADMAP queue 3, item 15). Callers hold the
+    executor's queue lock."""
+
+    def __init__(self):
+        self._queued: dict[str, int] = {}    # entries received, unstarted
+        self._stolen: dict[str, int] = {}    # entries to skip
+
+    def received(self, task_id: str) -> None:
+        self._queued[task_id] = self._queued.get(task_id, 0) + 1
+
+    def steal(self, task_id: str) -> bool:
+        """True when an unstarted entry of `task_id` is now stolen; an
+        entry that started (or ran) refuses, or its tombstone would skip
+        a later lineage resubmission of the same id."""
+        if not self._queued.get(task_id):
+            return False
+        self._take(self._queued, task_id)
+        self._stolen[task_id] = self._stolen.get(task_id, 0) + 1
+        return True
+
+    def start(self, task_id: str) -> bool:
+        """One FIFO entry of `task_id` reaches the executor: False to skip
+        it (a stolen entry), True to run it."""
+        if self._stolen.get(task_id):
+            self._take(self._stolen, task_id)
+            return False
+        self._take(self._queued, task_id)
+        return True
+
+    @staticmethod
+    def _take(counts: dict, task_id: str) -> None:
+        n = counts.get(task_id, 0) - 1
+        if n > 0:
+            counts[task_id] = n
+        else:
+            counts.pop(task_id, None)
+
+
 class WorkerExecutor:
     def __init__(self, ctx: WorkerContext):
         self.ctx = ctx
@@ -362,16 +408,11 @@ class WorkerExecutor:
             os.environ.get("RAY_TPU_TASK_EVENT_BUFFER", "32"))
         threading.Thread(target=self._event_flush_loop,
                          name="rtpu-task-events", daemon=True).start()
-        # pipelined-task steal-back (see UNQUEUE_TASK): tasks the driver
-        # reclaimed before they started; _run_task skips them silently.
-        # _queued_tasks tracks ids received but NOT yet started — the
-        # steal may only succeed against those; replying ok to a task
-        # that already ran would leave a poisoned tombstone that
-        # silently skips a lineage-resubmitted task with the same id.
+        # pipelined-task steal-back (see UNQUEUE_TASK): entries the
+        # driver reclaimed before they started; _run_task skips them
         self._queue_lock = threading.Lock()
-        self._queued_tasks: set[str] = set()
+        self._steals = _StealLedger()
         self._started_tasks: set[str] = set()
-        self._unqueued_tasks: set[str] = set()
         # tasks/actor-calls accepted but not yet completion-reported:
         # TASK_DONE coalesces (lazy) only while OTHER work is in
         # flight — a lone sync round-trip must not eat the ~1 ms
@@ -492,7 +533,7 @@ class WorkerExecutor:
             spec = msg["spec"]
             self._stamp_recv(spec, msg)
             with self._queue_lock:
-                self._queued_tasks.add(spec.task_id)
+                self._steals.received(spec.task_id)
                 self._inflight += 1
             self._pool.submit(self._run_task, spec)
         elif mtype == protocol.ACTOR_CREATE:
@@ -510,18 +551,9 @@ class WorkerExecutor:
             # driver steals back a task pipelined behind a BLOCKED task
             # (it would deadlock if the blocked get transitively depends
             # on it). ok only for a task that is genuinely queued and
-            # not started — a task that already started OR already
-            # COMPLETED (raced ahead of the steal decision) must refuse,
-            # or the tombstone would skip a future lineage resubmission
-            # of the same task id and hang its caller's get().
-            tid = msg["task_id"]
+            # not started (_StealLedger.steal).
             with self._queue_lock:
-                if tid in self._queued_tasks:
-                    self._queued_tasks.discard(tid)
-                    self._unqueued_tasks.add(tid)
-                    ok = True
-                else:
-                    ok = False
+                ok = self._steals.steal(msg["task_id"])
             conn.reply(msg, ok=ok)
         elif mtype == protocol.TRACE_DUMP:
             conn.reply(msg, dump=_tp.dump())
@@ -801,11 +833,9 @@ class WorkerExecutor:
     def _run_task(self, spec: TaskSpec) -> None:
         from ray_tpu_torch.exceptions import TaskCancelledError
         with self._queue_lock:
-            self._queued_tasks.discard(spec.task_id)
-            if spec.task_id in self._unqueued_tasks:
+            if not self._steals.start(spec.task_id):
                 # stolen back by the driver while queued: it was (or
                 # will be) re-dispatched elsewhere — skip silently
-                self._unqueued_tasks.discard(spec.task_id)
                 self._inflight = max(0, self._inflight - 1)
                 return
             self._started_tasks.add(spec.task_id)
@@ -857,9 +887,6 @@ class WorkerExecutor:
                            duration_s=time.time() - t0)
         with self._queue_lock:
             self._started_tasks.discard(spec.task_id)
-            # completion purges any stale steal tombstone so a lineage
-            # resubmission reusing this task id can never be skipped
-            self._unqueued_tasks.discard(spec.task_id)
 
     def _create_actor(self, spec: ActorSpec) -> None:
         try:

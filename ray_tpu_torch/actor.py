@@ -107,7 +107,8 @@ class ActorClass:
                     opts["name"], opts.get("namespace", "default"))
             except ValueError:
                 pass
-        s_args, s_kwargs, pinned = extract_ref_args(args, kwargs)
+        promoted: list = []     # held until the submit pins them
+        s_args, s_kwargs, pinned = extract_ref_args(args, kwargs, promoted)
         spec = ActorSpec(
             actor_id=new_actor_id(),
             class_id=class_id,
@@ -151,7 +152,8 @@ class ActorMethod:
         ctx = _context.get_ctx()
         num_returns = int(self._opts.get("num_returns", 1))
         task_id = new_task_id()
-        s_args, s_kwargs, pinned = extract_ref_args(args, kwargs)
+        promoted: list = []     # held until the submit pins them
+        s_args, s_kwargs, pinned = extract_ref_args(args, kwargs, promoted)
         spec = ActorTaskSpec(
             task_id=task_id,
             actor_id=self._handle._actor_id,

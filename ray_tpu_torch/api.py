@@ -174,7 +174,8 @@ class RemoteFunction:
         opts = self._opts
         num_returns = int(opts.get("num_returns", 1))
         task_id = new_task_id()
-        s_args, s_kwargs, pinned = extract_ref_args(args, kwargs)
+        promoted: list = []     # held until the submit pins them
+        s_args, s_kwargs, pinned = extract_ref_args(args, kwargs, promoted)
         spec = TaskSpec(
             task_id=task_id,
             func_id=func_id,

@@ -4,8 +4,10 @@ Port of `ray_tpu/train/`: TorchTrainer fans a user
 `train_loop_per_worker` out to a WorkerGroup of actors, joins them into
 one `torch.distributed` process group (TorchBackend), streams report()
 results back, manages checkpoints with retention, and restarts the whole
-group from the latest checkpoint on failure. Elastic mode and the MPMD
-pipeline are not ported yet (ROADMAP queue 1, items 3 and 9).
+group from the latest checkpoint on failure, or, with
+`ScalingConfig(elastic=...)`, reshapes it on node loss or gain
+(`train/elastic.py`). The MPMD pipeline is not ported yet (ROADMAP
+queue 1, item 9).
 
 Reference mapping:
 - TorchTrainer       <- train/data_parallel_trainer.py + backend_executor.py

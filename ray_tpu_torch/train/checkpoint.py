@@ -336,19 +336,51 @@ def pack_dir(path: str) -> bytes:
 
 
 def tar_array(data: bytes) -> np.ndarray:
-    """A packed checkpoint as a uint8 array over the same memory, for the
-    object plane: it sends an array out of band (a shm segment), where
-    `bytes` would be pickled in band into one frame of its size, and a
-    frame over `wire_max_frame_bytes` (1 GiB) kills the connection that
+    """A packed checkpoint as a uint8 array over the same memory, for a
+    reply that nests it (`RayTrainWorker.next_result`'s tuple): the object
+    plane sends an array out of band (a shm segment) wherever it sits in
+    the value, where `bytes` go out of band only as the value itself, and
+    a frame over `wire_max_frame_bytes` (1 GiB) kills the connection that
     carries it (ROADMAP queue 3, item 8). `unpack_dir` takes either."""
     return np.frombuffer(data, dtype=np.uint8)
+
+
+class _BufferReader(io.RawIOBase):
+    """A read-only file over a buffer, read where it lies: `io.BytesIO`
+    copies any buffer but `bytes`, and a multi-GB copy holds the GIL for
+    seconds, long enough for the head to miss its agents' heartbeats."""
+
+    def __init__(self, data):
+        self._mv = memoryview(data).cast("B")
+        self._pos = 0
+
+    def readable(self) -> bool:
+        return True
+
+    def seekable(self) -> bool:
+        return True
+
+    def readinto(self, b) -> int:
+        n = max(0, min(len(b), len(self._mv) - self._pos))
+        b[:n] = self._mv[self._pos:self._pos + n]
+        self._pos += n
+        return n
+
+    def seek(self, offset: int, whence: int = io.SEEK_SET) -> int:
+        base = {io.SEEK_SET: 0, io.SEEK_CUR: self._pos,
+                io.SEEK_END: len(self._mv)}[whence]
+        self._pos = max(0, base + offset)
+        return self._pos
+
+    def tell(self) -> int:
+        return self._pos
 
 
 def unpack_dir(data, dest: str) -> str:
     """Untar `data` (the bytes of `pack_dir`, or `tar_array` of them)
     into `dest`."""
     os.makedirs(dest, exist_ok=True)
-    with tarfile.open(fileobj=io.BytesIO(data), mode="r") as tar:
+    with tarfile.open(fileobj=_BufferReader(data), mode="r") as tar:
         try:
             tar.extractall(dest, filter="data")
         except TypeError:

@@ -4,9 +4,10 @@ Port of `ray_tpu/train/config.py`. Parity: reference
 python/ray/air/config.py (ScalingConfig:102, RunConfig, CheckpointConfig,
 FailureConfig). `ScalingConfig` speaks workers x GPUs (`use_gpu`,
 `gpus_per_worker`) where the JAX package speaks hosts x chips; its `mesh`
-and `topology` raise until the parallel layer and multi-node placement
-are ported. `ElasticConfig` and `PipelineConfig` are copies, so configs
-validate the same way, though `fit` raises on both paths for now.
+raises until the parallel layer is ported, and `topology` (pod-slice
+placement) until `util/accelerators` is. `ElasticConfig` and
+`PipelineConfig` are copies, so configs validate the same way; `fit`
+runs the elastic path and raises on the pipeline path.
 """
 from __future__ import annotations
 
@@ -75,8 +76,8 @@ class ScalingConfig:
     resources_per_worker: Optional[Dict[str, float]] = None
     mesh: Any = None                    # the parallel layer: not yet
     placement_strategy: str = "PACK"
-    # TPU pod-slice placement in the JAX package; the GPU counterpart is
-    # multi-node placement, not ported yet
+    # TPU pod-slice placement in the JAX package; its counterpart comes
+    # with util/accelerators (slice bundles), not ported yet
     topology: Optional[str] = None
     pod_name: Optional[str] = None
     # Elastic mode (r14): reshape the group on node loss/gain instead
@@ -95,15 +96,24 @@ class ScalingConfig:
                     f"elastic.min_workers={self.elastic.min_workers} "
                     f"exceeds the effective max_workers={eff_max} "
                     f"(= num_workers when elastic.max_workers is 0)")
+        if self.topology is not None and self.elastic is not None:
+            # A pod slice provisions and dies ATOMICALLY — there is no
+            # per-host shrink to reshape around, and the elastic group
+            # builder has no slice bundle pinning. Fail loudly instead
+            # of silently dropping the slice placement.
+            raise ValueError(
+                "elastic= is not supported with topology= (a pod "
+                "slice preempts atomically; run elastic across "
+                "single-host node types instead)")
         if self.mesh is not None:
             raise NotImplementedError(
                 "ScalingConfig.mesh needs the parallel layer (DeviceMesh, "
                 "FSDP/TP plans), ROADMAP queue 1, item 5")
         if self.topology is not None:
             raise NotImplementedError(
-                "ScalingConfig.topology (pod-slice placement) has its GPU "
-                "counterpart in multi-node placement: ROADMAP queue 1, "
-                "items 3 and 5")
+                "ScalingConfig.topology (pod-slice placement) needs "
+                "util/accelerators (slice_bundles, slice_placement_group) "
+                "and the parallel layer: ROADMAP queue 1, items 5 and 11")
 
     def worker_resources(self) -> Dict[str, float]:
         res = dict(self.resources_per_worker or {})

@@ -1,12 +1,15 @@
 """Per-worker training session: the `ray_tpu_torch.train.report()` machinery.
 
 A copy of `ray_tpu/train/session.py`; `get_dataset_shard` hands back the
-port's `DataIterator`.
+port's `DataIterator`, and `report()` returns only once the driver holds
+the result (ROADMAP queue 3): the driver's next `next_result` call lets
+it go, not the call that takes the result, whose reply is still to be
+sent (a loop that ends its process when `report()` returns lost it).
 
 Parity: reference train/_internal/session.py (_TrainSession:111, result
 queue hand-off :204-213, report:403,667). The user loop runs in a
 daemon thread inside the worker actor; `report()` enqueues (metrics,
-checkpoint_dir) and blocks until the driver consumes it, giving the
+checkpoint_dir) and blocks until the driver has received it, giving the
 same backpressure semantics as the reference.
 """
 from __future__ import annotations
@@ -68,6 +71,7 @@ class _TrainSession:
         self._config = config
         self._results: "queue.Queue" = queue.Queue(maxsize=1)
         self._consumed = threading.Semaphore(0)
+        self._handed_out = False       # a result the driver may not hold yet
         self._done = False
         self._error: Optional[BaseException] = None
         # Elastic checkpoint cadence (r14): the loop asks
@@ -100,7 +104,7 @@ class _TrainSession:
         if checkpoint is not None:
             self._ckpt_requested.clear()   # flush satisfied
         self._results.put((metrics, checkpoint))
-        self._consumed.acquire()  # block until driver drains (parity)
+        self._consumed.acquire()  # block until the driver holds it
 
     def request_checkpoint(self) -> None:
         """Driver-side flush request (drain notice / pre-grow): the
@@ -115,13 +119,20 @@ class _TrainSession:
         return bool(n and step is not None and (int(step) + 1) % n == 0)
 
     def next_result(self, timeout: Optional[float] = None):
-        """Driver side: (metrics, checkpoint) | None when finished."""
+        """Driver side: (metrics, checkpoint) | None when finished.
+
+        The driver asks for a result only once it holds the one before,
+        so a call first lets the report() of the result it handed out
+        last return."""
+        if self._handed_out:
+            self._handed_out = False
+            self._consumed.release()
         item = self._results.get(timeout=timeout)
         if item is None:
             if self._error is not None:
                 raise self._error
             return None
-        self._consumed.release()
+        self._handed_out = True
         return item
 
     @property

@@ -1,9 +1,10 @@
 """TorchTrainer: the DataParallelTrainer equivalent, standalone.
 
 Port of `ray_tpu/train/trainer.py` (its TorchTrainer): the data-parallel
-fit loop, dataset sharding and the driver's result loop are copies. The
-MPMD pipeline mode (`pipeline_stages > 1`, ROADMAP queue 1, item 9) and
-elastic mode (item 3) raise NotImplementedError.
+fit loop, dataset sharding, the driver's result loop and the elastic
+dispatch (`train/elastic.py`) are copies. The MPMD pipeline mode
+(`pipeline_stages > 1`, ROADMAP queue 1, item 9) raises
+NotImplementedError.
 
 Parity: reference train/data_parallel_trainer.py (training_loop:428-474)
 + backend_executor.py (start:135, whole-group _restart:759, max_failures
@@ -81,11 +82,11 @@ class TorchTrainer:
         if self._scaling.elastic is not None:
             from ray_tpu_torch._private.config import CONFIG
             if CONFIG.elastic:
-                # Elastic mode (r14 in the JAX package): reshape on node
-                # loss/gain instead of the whole-group restart below.
-                raise NotImplementedError(
-                    "elastic training (train/elastic.py) waits for the node "
-                    "agent: ROADMAP queue 1, item 3")
+                # Elastic mode (r14): reshape on node loss/gain with
+                # auto-restore from the latest checkpoint instead of
+                # the fixed-size whole-group restart loop below.
+                from ray_tpu_torch.train.elastic import fit_elastic
+                return fit_elastic(self)
         return self._fit_data_parallel()
 
     def _fit_data_parallel(self) -> Result:
@@ -121,12 +122,10 @@ class TorchTrainer:
                 # driver's filesystem)
                 restore_arg = None
                 if restore is not None:
-                    from ray_tpu_torch.train.checkpoint import (
-                        pack_dir, tar_array)
+                    from ray_tpu_torch.train.checkpoint import pack_dir
                     # put once, fan out the ref: workers resolve it to
-                    # the tar via shm instead of N pickled copies
-                    restore_arg = ray_tpu_torch.put(
-                        tar_array(pack_dir(restore.path)))
+                    # the bytes via shm instead of N pickled copies
+                    restore_arg = ray_tpu_torch.put(pack_dir(restore.path))
                 shard_bytes = self._dataset_shards(group.num_workers)
                 ray_tpu_torch.get([
                     w.init_session.remote(fn_bytes, self._config,

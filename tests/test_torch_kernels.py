@@ -548,6 +548,47 @@ def test_checkpoint_round_trip_of_card_params_and_adamw_is_exact(dev,
         assert torch.equal(p, q)
 
 
+@pytest.mark.cuda
+def test_a_gpu_task_on_an_agent_node_sees_the_card(dev):
+    """A head with no GPU and a node agent that owns the card
+    (`--num-gpus 1`): a `num_gpus=1` task runs on the agent's node and
+    computes on the card there."""
+    import time
+
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster_utils import NodeAgentProcess
+    del dev
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2, num_gpus=0)
+    agent = NodeAgentProcess(num_cpus=2, num_gpus=1)
+    try:
+        assert ray_tpu_torch.cluster_resources().get("GPU", 0) == 0
+        deadline = time.monotonic() + 60
+        while (ray_tpu_torch.cluster_resources().get("GPU", 0) < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        assert ray_tpu_torch.cluster_resources().get("GPU") == 1
+
+        @ray_tpu_torch.remote(num_gpus=1)
+        def on_card():
+            import os as _os
+
+            import torch as _torch
+            x = _torch.arange(8.0, device="cuda")
+            return (_os.environ.get("RAY_TPU_NODE_ID"),
+                    _torch.cuda.get_device_name(0), float((x * x).sum()))
+
+        node, name, total = ray_tpu_torch.get(on_card.remote(), timeout=120)
+        assert node == agent.node_id
+        assert name == torch.cuda.get_device_name(0)
+        assert total == 140.0
+    finally:
+        ray_tpu_torch.shutdown()
+        agent.terminate()
+        agent.wait(10)
+
+
 # ---------------------------------------------------------- no card needed
 @pytest.mark.parametrize("b,h,kvh,s,d", [(1, 4, 2, 9, 16),
                                          (2, 2, 2, 1, 64)])

@@ -112,6 +112,35 @@ def test_num_gpus_beyond_the_cards_stays_infeasible(port):
     ray_tpu_torch.cancel(ref)
 
 
+def test_a_task_stolen_twice_from_one_worker_runs_there_once():
+    """The driver steals a task pipelined behind a blocked one, places
+    it on the same worker again, and steals that copy too: both stale
+    entries wait in the worker's FIFO and both must be skipped. One
+    tombstone per task id skipped only the first, so the task ran there
+    as well as where it was placed (ROADMAP queue 3, item 15: a shuffle
+    pipeline's `get` hung on the duplicate)."""
+    from ray_tpu_torch._private.worker_main import _StealLedger
+    ledger = _StealLedger()
+    ledger.received("r")                 # pipelined behind a blocked task
+    assert ledger.steal("r")
+    ledger.received("r")                 # placed on this worker again
+    assert ledger.steal("r")
+    assert [ledger.start("r"), ledger.start("r")] == [False, False]
+    assert not ledger.steal("r")         # nothing of it is queued now
+    # a stolen entry, then a copy that stays: the copy runs, once
+    ledger.received("s")
+    assert ledger.steal("s")
+    ledger.received("s")
+    assert [ledger.start("s"), ledger.start("s")] == [False, True]
+    # an entry that started refuses a steal, so no tombstone can skip a
+    # later resubmission of the same id
+    ledger.received("t")
+    assert ledger.start("t")
+    assert not ledger.steal("t")
+    ledger.received("t")
+    assert ledger.start("t")
+
+
 def test_a_stalled_driver_keeps_its_head_node_alive(port):
     """The head node's scheduler runs in the driver, which also sweeps
     liveness: when the driver stalls past `heartbeat_timeout_s` (a

@@ -309,7 +309,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "_private.runtime", "_private.worker_main",
                  "_private.object_store", "_private.scheduler", "api",
                  "actor", "native", "serve", "serve.llm",
-                 "serve.llm.router", "serve.llm.stream", "serve.llm.engine"):
+                 "serve.llm.router", "serve.llm.stream", "serve.llm.engine",
+                 "_private.node_agent", "cluster_utils", "autoscaler",
+                 "util.state", "train.elastic"):
         assert "ray_tpu_torch." + name in modules, name
     imported, modules = run(
         "import sys, pkgutil, importlib\n"
