@@ -84,7 +84,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      tensor equal to its checksum, 16 / 16 / 16 / 33 launches a step on
      both nodes, the restore's broadcast to B complete and its route
      (TCP or mapped in place) printed; after `shutdown()` the card's
-     memory is back.
+     memory is back;
+ 11. parallel: the parallel layer (`ray_tpu_torch.parallel`) on a
+     one-rank nccl mesh: (a) the bench model with DTensor parameters
+     placed by its logical axes, 5 AdamW steps whose losses are held to
+     phase 8's and whose kernels run inside `local_map` (16 / 16 / 16 /
+     33 launches a step); (b) the bench model's widths with Mixtral
+     8x7B's routing (8 experts, top 2, ~4.83 B params): every expert set
+     to the dense FFN gives the dense forward with nothing dropped, then
+     6 AdamW steps in process, then the same 6 through `TorchTrainer`
+     from one `num_gpus=1` worker with `ScalingConfig(mesh=MeshSpec())`,
+     its losses held to the in-process ones. One card makes every mesh
+     axis size 1: no multi-rank time is taken.
 The last three lines are the card (`nvidia-smi`), the kernels as JSON,
 and `{"ok": true, "device": {...}}`.
 """
@@ -2185,6 +2196,319 @@ def elastic_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
     return out
 
 
+# The parallel phase: the dense steps on the one-rank mesh, the MoE
+# steps, and the MoE routing of Mixtral 8x7B (`num_local_experts`,
+# `num_experts_per_tok` of Mistral AI's published config) at the bench
+# model's widths, with the JAX defaults' capacity factor and aux weight
+PARALLEL_STEPS, MOE_STEPS = 5, 6
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+# tolerances, set from the arithmetic before any run:
+#  * dense steps on the mesh against train()'s: the same kernels on the
+#    same tensors (one rank: every local shard is the whole tensor), the
+#    matmuls through local_map and the embedding's backward through
+#    F.embedding's where train() indexes; summation orders may differ in
+#    the last bits of a bf16 weight per step, so 1e-3 of the loss;
+#  * the MoE trainer's losses against the in-process MoE run: the same
+#    program on the same card, the worker's under a one-rank mesh; 1e-3;
+#  * the MoE forward with every expert holding the dense FFN's weights
+#    against the dense forward (capacity factor E / top_k, nothing
+#    drops): the two top-k weights are rounded to bf16 before the
+#    combine (2^-8 of each), so a layer's FFN output moves by up to
+#    ~2^-7 relative, through 16 layers of bf16 residual stream; the
+#    logits' max difference within 5e-2 of their max, as the prefill
+#    check's bf16 logits.
+TOL.update({"mesh_loss_rel": 1e-3, "moe_trainer_loss_rel": 1e-3,
+            "moe_parity_logits_rel_to_max": 5e-2})
+
+
+def moe_config(cfg, **kw):
+    return dataclasses.replace(cfg, moe_num_experts=MOE_EXPERTS,
+                               moe_top_k=MOE_TOP_K, **kw)
+
+
+class MoEStats:
+    """Records `moe_ffn`'s aux of every call the model makes while
+    entered (the transformer module's name is wrapped for the phase)."""
+
+    def __init__(self):
+        from ray_tpu_torch.models import transformer
+        self.module, self.dropped, self.lb = transformer, [], []
+
+    def __enter__(self):
+        self.real = self.module.moe_ffn
+
+        def recording(*args, **kwargs):
+            y, aux = self.real(*args, **kwargs)
+            self.dropped.append(aux["moe_dropped_fraction"].detach())
+            self.lb.append(aux["moe_load_balance_loss"].detach())
+            return y, aux
+        self.module.moe_ffn = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.moe_ffn = self.real
+
+    def summary(self) -> dict:
+        def local(t):
+            return float(t.to_local() if hasattr(t, "to_local") else t)
+        d = [local(t) for t in self.dropped]
+        lb = [local(t) for t in self.lb]
+        return {"dropped_fraction_max": max(d) if d else None,
+                "dropped_fraction_mean": statistics.mean(d) if d else None,
+                "load_balance_loss_mean": statistics.mean(lb) if lb else None,
+                "calls": len(d)}
+
+
+def timed_steps(model, params, opt, batch, steps: int, dev) -> dict:
+    """`steps` of `bench.train_step`: each loss, step time (ending in the
+    loss's copy to the host) and kernel launches."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    losses, step_ms, launches = [], [], []
+    for _ in range(steps):
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        loss = bench.train_step(model, params, opt, batch).item()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        sync()
+        after = kernel_counts()
+        launches.append({k: after[k] - before[k] for k in after})
+        losses.append(loss)
+    return {"losses": losses, "step_ms": step_ms, "launches": launches}
+
+
+def check_launches(runs: list, cfg, what: str) -> dict:
+    per_step = {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
+                "flash_dq": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1}
+    for i, got in enumerate(runs):
+        if got != per_step:
+            raise AssertionError(f"{what} step {i} launched {got}, expected "
+                                 f"{per_step}")
+    return per_step
+
+
+def rel_losses(got: list, want: list, tol: float, what: str) -> float:
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if not all(np.isfinite(got)) or max(rel) > tol:
+        raise AssertionError(f"{what} losses {got} against {want[:len(got)]}"
+                             f" (max rel {max(rel)}, limit {tol})")
+    return max(rel)
+
+
+def parallel_loop(config):
+    """The MoE trainer's `train_loop_per_worker` (pickled by value from the
+    driver's `__main__`): the worker imports `chip_smoke` from the repo
+    root on its PYTHONPATH and runs `moe_worker` there."""
+    import chip_smoke
+    chip_smoke.moe_worker(config)
+
+
+def moe_worker(config: dict) -> None:
+    """In the train worker: the mesh from the trainer's MeshSpec over the
+    group TorchBackend formed (`prepare_mesh`), the MoE model from seed 0
+    placed on it, and a step a report."""
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.models.config import TransformerConfig
+    from ray_tpu_torch.parallel import (MeshSpec, param_shardings,
+                                        prepare_mesh, shard_pytree)
+    dev = torch.device(config["device"])
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    mesh = prepare_mesh(MeshSpec(**config["mesh"]),
+                        device=None if on_card else "cpu")
+    cfg = TransformerConfig(**config["cfg"])
+    model = Transformer(cfg, mesh=mesh)
+    params = shard_pytree(Transformer(cfg).init(0, device=dev),
+                          param_shardings(mesh, model.param_logical_axes()))
+    opt = bench.make_optimizer(params)
+    batch = {"tokens": torch.as_tensor(np.asarray(config["tokens"]),
+                                       device=dev)}
+    with MoEStats() as stats:
+        run = timed_steps(model, params, opt, batch, config["steps"], dev)
+    for i, loss in enumerate(run["losses"]):
+        metrics = {"step": i, "loss": loss, "step_ms": run["step_ms"][i],
+                   "launches": run["launches"][i]}
+        if i == config["steps"] - 1:
+            metrics.update(stats.summary(), peak_mem_gib=(
+                torch.cuda.max_memory_allocated() / 2 ** 30
+                if on_card else 0.0))
+        rt_train.report(metrics)
+
+
+def parallel_phase(trained: dict, dev, smi: str, cfg=None,
+                   batch: int = TRAIN_B, seq: int = TRAIN_S) -> dict:
+    """The parallel layer on the card. (a) The bench model on a one-rank
+    nccl mesh (`prepare_mesh(MeshSpec())`), parameters placed by
+    `shard_pytree(param_shardings(...))`, PARALLEL_STEPS AdamW steps on
+    train()'s batch: each loss within TOL of train()'s at the same step,
+    16 / 16 / 16 / 33 launches a step (the kernels inside local_map).
+    (b) The bench model's widths with Mixtral 8x7B's routing (8 experts,
+    top 2): (i) every expert set to the dense FFN's weights at capacity
+    factor 4.0 gives the dense forward with nothing dropped; (ii)
+    MOE_STEPS AdamW steps in process without a mesh, the card freed, then
+    the same steps through `TorchTrainer` from one `num_gpus=1` worker
+    with `ScalingConfig(mesh=MeshSpec())`, whose loop calls
+    `prepare_mesh`: losses within TOL of the in-process ones. `dev` is
+    the card; the CPU only rehearses (gloo, tiny())."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import ray_tpu_torch
+    from ray_tpu_torch.parallel import (MeshSpec, param_shardings,
+                                        prepare_mesh, shard_pytree)
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig, TorchConfig,
+                                     TorchTrainer)
+    on_card = dev.type == "cuda"
+    cfg = cfg or bench.bench_config()
+    data = bench.make_batch(cfg, batch, seq, dev)
+    out = {"card": smi}
+
+    # (a) dense on the one-rank mesh
+    mesh = prepare_mesh(MeshSpec(), device=None if on_card else "cpu")
+    try:
+        model = Transformer(cfg, mesh=mesh)
+        params = shard_pytree(Transformer(cfg).init(0, device=dev),
+                              param_shardings(mesh,
+                                              model.param_logical_axes()))
+        opt = bench.make_optimizer(params)
+        reset_counts()
+        dense = timed_steps(model, params, opt, data, PARALLEL_STEPS, dev)
+        out["dense_launches"] = kernel_counts()
+    finally:
+        dist.destroy_process_group()
+    want = trained["losses"][:PARALLEL_STEPS]
+    out["dense"] = {
+        "losses": dense["losses"], "train_losses": want,
+        "bit_equal": dense["losses"] == want,
+        "loss_rel_err_max": rel_losses(dense["losses"], want,
+                                       TOL["mesh_loss_rel"], "mesh dense"),
+        "step_ms": dense["step_ms"],
+        "step_ms_p50": statistics.median(dense["step_ms"][1:]),
+        "train_step_ms_p50": trained["step_ms_p50"],
+        "launches_per_step": check_launches(dense["launches"], cfg,
+                                            "mesh dense")}
+    log(f"parallel (a) [{smi}]: {json.dumps(out['dense'])}")
+    del model, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b)(i) identical experts give the dense forward
+    dense_model = Transformer(cfg)
+    moe_model = Transformer(moe_config(cfg, moe_capacity_factor=float(
+        MOE_EXPERTS // MOE_TOP_K)))
+    with torch.no_grad():
+        dp = dense_model.init(0, device=dev)
+        mp = {k: v for k, v in dp.items() if k != "layers"}
+        mp["layers"] = []
+        for layer in dp["layers"]:
+            moe_layer = {k: layer[k] for k in ("attn_norm", "wq", "wk", "wv",
+                                               "wo", "mlp_norm")}
+            for name, src in (("moe_gate", "gate"), ("moe_up", "up"),
+                              ("moe_down", "down")):
+                moe_layer[name] = layer[src][None].expand(
+                    (MOE_EXPERTS,) + tuple(layer[src].shape))
+            moe_layer["router"] = 0.02 * torch.randn(
+                cfg.d_model, MOE_EXPERTS, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(5)).to(
+                    cfg.parameter_dtype)
+            mp["layers"].append(moe_layer)
+        want_logits = dense_model.apply(dp, data["tokens"])
+        reset_counts()
+        with MoEStats() as stats:
+            got_logits = moe_model.apply(mp, data["tokens"])
+        parity_launches = kernel_counts()
+        diff = float((got_logits - want_logits).abs().max())
+        scale = float(want_logits.abs().max())
+    parity = {"max_abs_logit_diff": diff, "max_abs_logit": scale,
+              "tolerance_rel_to_max": TOL["moe_parity_logits_rel_to_max"],
+              **stats.summary(), "launches": parity_launches}
+    if not diff <= TOL["moe_parity_logits_rel_to_max"] * scale:
+        raise AssertionError(f"identical experts: logits differ by {diff} "
+                             f"(max |logit| {scale})")
+    if parity["dropped_fraction_max"] != 0.0:
+        raise AssertionError(f"identical experts dropped tokens: {parity}")
+    out["moe_parity"] = parity
+    log(f"parallel (b)(i) [{smi}]: {json.dumps(parity)}")
+    del dp, mp, want_logits, got_logits, dense_model, moe_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b)(ii) MoE steps in process, then through TorchTrainer on a mesh
+    moe_cfg = moe_config(cfg)
+    model = Transformer(moe_cfg)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, device=dev)
+    opt = bench.make_optimizer(params)
+    reset_counts()
+    with MoEStats() as stats:
+        local = timed_steps(model, params, opt, data, MOE_STEPS, dev)
+    out["moe_in_process"] = {
+        "params": moe_cfg.num_params(),
+        "active_params": moe_cfg.num_params(active_only=True),
+        "losses": local["losses"], "step_ms": local["step_ms"],
+        "step_ms_p50": statistics.median(local["step_ms"][1:]),
+        "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if on_card else 0.0),
+        **stats.summary(),
+        "launches_per_step": check_launches(local["launches"], moe_cfg,
+                                            "MoE in process"),
+        "launches": kernel_counts()}
+    log(f"parallel (b)(ii) in process [{smi}]: "
+        f"{json.dumps(out['moe_in_process'])}")
+    del model, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    storage = tempfile.mkdtemp(prefix="rtt_parallel_phase_")
+    config = {"cfg": dataclasses.asdict(moe_cfg), "steps": MOE_STEPS,
+              "mesh": dataclasses.asdict(MeshSpec()),
+              "tokens": data["tokens"].cpu().numpy().tolist(),
+              "device": "cuda" if on_card else "cpu"}
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        fit_at = time.time()
+        result = TorchTrainer(
+            parallel_loop, train_loop_config=config,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card,
+                                         mesh=MeshSpec()),
+            run_config=RunConfig(name="parallel_phase", storage_path=storage),
+            backend_config=TorchConfig(
+                distributed=True, platform=None if on_card else "cpu"),
+        ).fit()
+        fit_s = time.time() - fit_at
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    if result.error is not None:
+        raise AssertionError(f"MoE TorchTrainer failed: {result.error!r}")
+    hist = result.metrics_history
+    if [m["step"] for m in hist] != list(range(MOE_STEPS)):
+        raise AssertionError(f"MoE trainer steps {[m['step'] for m in hist]}")
+    losses = [m["loss"] for m in hist]
+    last = hist[-1]
+    out["moe_trainer"] = {
+        "fit_s": fit_s, "losses": losses,
+        "in_process_losses": local["losses"],
+        "bit_equal": losses == local["losses"],
+        "loss_rel_err_max": rel_losses(losses, local["losses"],
+                                       TOL["moe_trainer_loss_rel"],
+                                       "MoE trainer"),
+        "step_ms_p50": statistics.median([m["step_ms"] for m in hist][1:]),
+        "peak_mem_gib": last["peak_mem_gib"],
+        "dropped_fraction_max": last["dropped_fraction_max"],
+        "dropped_fraction_mean": last["dropped_fraction_mean"],
+        "load_balance_loss_mean": last["load_balance_loss_mean"],
+        "launches_per_step": check_launches([m["launches"] for m in hist],
+                                            moe_cfg, "MoE trainer"),
+        "launches": {k: sum(m["launches"][k] for m in hist)
+                     for k in hist[0]["launches"]}}
+    log(f"parallel (b)(ii) trainer [{smi}]: "
+        f"{json.dumps(out['moe_trainer'])}")
+    return out
+
+
 def _double(x):
     return 2 * x
 
@@ -2547,6 +2871,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     elastic = elastic_phase(trained, dev)
     log("elastic: " + json.dumps(elastic))
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel = parallel_phase(trained, dev, smi)
+    log("parallel: " + json.dumps(parallel))
     # launches on each main path, each read just after that path ran
     paths = {"engine_core": served["launches"],
              "llm_engine": served["llm_engine"]["launches"],
@@ -2558,7 +2886,11 @@ def main() -> None:
              "train_remat_save_attn_step":
                  trained["remat_steps"]["launches"]["save_attn"],
              "trainer": fitted["launches"],
-             "elastic_worker": elastic["launches"]}
+             "elastic_worker": elastic["launches"],
+             "mesh_dense_5_steps": parallel["dense_launches"],
+             "moe_parity_forward": parallel["moe_parity"]["launches"],
+             "moe_in_process_6_steps": parallel["moe_in_process"]["launches"],
+             "moe_trainer_6_steps": parallel["moe_trainer"]["launches"]}
     for name in ("flash_fwd", "flash_dkdv", "flash_dq", "rms_norm"):
         if sum(p[name] for p in paths.values()) == 0:
             raise AssertionError(f"{name} never launched on a main path")

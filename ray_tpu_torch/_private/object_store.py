@@ -490,22 +490,52 @@ def _rebuild_bytes(buf, mutable: bool):
     return bytearray(buf) if mutable else bytes(buf)
 
 
-def serialize(value: Any, object_id: Optional[str] = None,
-              create_shm: bool = True) -> StoredObject:
-    """Pickle `value` into a StoredObject: every buffer of at least
-    `inline_threshold_bytes` (an array's, a tensor's) out of band in its
-    own shm segment, the rest inline.
+class _Cycle(Exception):
+    pass
 
-    A `bytes` or `bytearray` value of at least `inline_threshold_bytes`
-    travels out of band too, as one buffer, and `deserialize` gives back
-    an equal object of the same type. Only the value itself is covered:
-    `bytes` nested inside a container (a tuple, a list, a dict) are
-    pickled in band, so a frame over `wire_max_frame_bytes` still fails
-    for them (ROADMAP queue 3)."""
-    object_id = object_id or new_object_id()
-    if (type(value) in (bytes, bytearray)
-            and len(value) >= _CFG.inline_threshold_bytes):
-        value = _OutOfBandBytes(value)
+
+_BUSY = object()
+
+
+def bytes_out_of_band(value: Any, limit: int) -> Any:
+    """`value` with every `bytes`/`bytearray` of at least `limit` bytes, the
+    value itself or one inside (exact) dicts, lists and tuples, wrapped to
+    pickle out of band (`_OutOfBandBytes`): the pickler writes `bytes` in
+    band and never offers them to `reducer_override`. Containers holding
+    one are copied (a shared one once); a value holding none comes back
+    as it is, and so does one with a reference cycle."""
+    memo: dict = {}
+
+    def walk(v):
+        t = type(v)
+        if t is bytes or t is bytearray:
+            return _OutOfBandBytes(v) if len(v) >= limit else v
+        if t is not dict and t is not list and t is not tuple:
+            return v
+        got = memo.get(id(v))
+        if got is _BUSY:
+            raise _Cycle
+        if got is not None:
+            return got
+        memo[id(v)] = _BUSY
+        if t is dict:
+            items = {k: walk(x) for k, x in v.items()}
+            same = all(items[k] is x for k, x in v.items())
+        else:
+            items = [walk(x) for x in v]
+            same = all(a is b for a, b in zip(items, v))
+            items = items if t is list else tuple(items)
+        memo[id(v)] = out = v if same else items
+        return out
+
+    try:
+        return walk(value)
+    except (_Cycle, RecursionError):
+        return value
+
+
+def _pickle(value: Any) -> tuple:
+    """(payload, out-of-band buffers, ids of the ObjectRefs inside)."""
     raw_buffers: list[pickle.PickleBuffer] = []
     from ray_tpu_torch._private.refs import _capture
     # Save/restore the enclosing capture list instead of resetting to
@@ -519,9 +549,25 @@ def serialize(value: Any, object_id: Optional[str] = None,
         with io.BytesIO() as f:
             _Pickler(f, protocol=5,
                      buffer_callback=raw_buffers.append).dump(value)
-            payload = f.getvalue()
+            return f.getvalue(), raw_buffers, contained
     finally:
         _capture.ids = prev_ids
+
+
+def serialize(value: Any, object_id: Optional[str] = None,
+              create_shm: bool = True) -> StoredObject:
+    """Pickle `value` into a StoredObject: every buffer of at least
+    `inline_threshold_bytes` (an array's, a tensor's) out of band in its
+    own shm segment, the rest inline.
+
+    A `bytes` or `bytearray` of at least `inline_threshold_bytes` travels
+    out of band too, as one buffer, whether it is the value itself or
+    sits inside dicts, lists and tuples (`bytes_out_of_band`), and
+    `deserialize` gives back an equal object of the same type."""
+    object_id = object_id or new_object_id()
+    limit = _CFG.inline_threshold_bytes
+    payload, raw_buffers, contained = _pickle(bytes_out_of_band(value,
+                                                                limit))
     inline: list[bytes] = []
     shm_names: list[str] = []
     shm_sizes: list[int] = []

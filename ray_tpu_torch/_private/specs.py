@@ -202,18 +202,19 @@ def extract_ref_args(args: tuple, kwargs: dict, keep: list):
     arrive as borrowed ObjectRefs, matching reference semantics where only
     top-level refs are resolved to values before execution.
 
-    A top-level `bytes` or `bytearray` arg of at least
-    `inline_threshold_bytes` is `put` in the object store and passed as a
-    RefMarker too, so it travels out of band and not inside the spec's
-    frame (which `wire_max_frame_bytes` bounds). Its ObjectRef goes into
-    `keep`: the caller holds it until the submit has pinned the id."""
+    A top-level arg that is, or holds inside dicts, lists and tuples, a
+    `bytes` or `bytearray` of at least `inline_threshold_bytes` is `put` in
+    the object store and passed as a RefMarker too, so those bytes travel
+    out of band and not inside the spec's frame (which
+    `wire_max_frame_bytes` bounds). Its ObjectRef goes into `keep`: the
+    caller holds it until the submit has pinned the id."""
     from ray_tpu_torch._private.config import CONFIG
+    from ray_tpu_torch._private.object_store import bytes_out_of_band
     from ray_tpu_torch._private.refs import ObjectRef
     pinned: list[str] = []
 
     def conv(v):
-        if (type(v) in (bytes, bytearray)
-                and len(v) >= CONFIG.inline_threshold_bytes):
+        if bytes_out_of_band(v, CONFIG.inline_threshold_bytes) is not v:
             from ray_tpu_torch._private import context
             v = context.get_ctx().put(v)
             keep.append(v)

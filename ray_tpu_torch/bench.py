@@ -24,6 +24,7 @@ import torch
 from ray_tpu_torch.models.config import TransformerConfig, tiny
 from ray_tpu_torch.models.transformer import Params, Transformer
 from ray_tpu_torch.ops.dispatch import resolve_device
+from ray_tpu_torch.parallel.sharding import sync_grads
 
 # Dense bf16 tensor-core FLOP/s by part (NVIDIA data sheets).
 PEAK_FLOPS = {"H100 PCIe": 756e12, "H100": 989e12, "H200": 989e12}
@@ -74,10 +75,14 @@ def make_optimizer(params: Params) -> torch.optim.Optimizer:
 def train_step(model: Transformer, params: Params,
                opt: torch.optim.Optimizer, batch) -> torch.Tensor:
     """One step: loss, backward, AdamW update (in place). Returns the
-    loss, detached; it does not wait for the card."""
+    loss, detached; it does not wait for the card. Under a mesh the
+    parameters are DTensors, whose gradients are first summed onto their
+    placements (`sync_grads`)."""
     opt.zero_grad(set_to_none=True)
     loss = model.loss(params, batch)
     loss.backward()
+    if model.mesh is not None:
+        sync_grads(params)
     opt.step()
     return loss.detach()
 

@@ -1,8 +1,8 @@
 """Parameters from the JAX package's pytree, and the one cast that serving
 makes.
 
-The JAX tree stacks each layer parameter on a leading layers axis; the
-port unstacks the layers and keeps every leaf in the parameter dtype, as
+The JAX tree stacks each layer parameter (the MoE router and experts
+included) on a leading layers axis; the port unstacks the layers and keeps every leaf in the parameter dtype, as
 the JAX tree does. Both packages cast the matmul weights to the
 activation dtype at every use. For serving, `cast_for_serving` makes that
 cast once (the same rounding), and `init_for_serving` makes random
@@ -25,9 +25,9 @@ def params_from_jax(tree: Mapping[str, Any], config: TransformerConfig,
     """`tree`: the JAX param pytree with numpy arrays as leaves (e.g.
     `jax.tree_util.tree_map(np.asarray, params)`). Returns the port's
     parameters on `device` (default: the card), each leaf in the
-    parameter dtype."""
-    if config.moe_num_experts:
-        raise NotImplementedError("MoE parameters are not ported yet")
+    parameter dtype. An MoE tree's `router`, `moe_gate`, `moe_up` and
+    `moe_down`, stacked (L, E, ...) there, are unstacked per layer as the
+    other layer leaves are."""
     dev = resolve_device(device)
     pd = config.parameter_dtype
 

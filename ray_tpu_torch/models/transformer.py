@@ -1,18 +1,28 @@
-"""Llama-family decoder: GQA + RoPE + SwiGLU on the port's ops.
+"""Llama-family decoder: GQA + RoPE + SwiGLU (or an MoE FFN) on the
+port's ops.
 
-Port of the dense branch of `ray_tpu/models/transformer.py`. Parameters
-are a plain dict, as in the JAX package, with one difference: the
-layers are a list of per-layer dicts instead of arrays stacked on a
-leading layers axis (PyTorch runs the layer loop eagerly; there is no
-scan to feed). Every leaf is stored in the parameter dtype and cast to
-the activation dtype at each use, as the JAX package does, so training
-differentiates and updates the parameter-dtype leaves (f32 master
-weights under the default config). Serving casts the matmul weights once
-instead (`models/convert.py::cast_for_serving`), after which the casts
-at use are free.
+Port of `ray_tpu/models/transformer.py`. Parameters are a plain dict, as
+in the JAX package, with one difference: the layers are a list of
+per-layer dicts instead of arrays stacked on a leading layers axis
+(PyTorch runs the layer loop eagerly; there is no scan to feed). Every
+leaf is stored in the parameter dtype and cast to the activation dtype
+at each use, as the JAX package does, so training differentiates and
+updates the parameter-dtype leaves (f32 master weights under the default
+config). Serving casts the matmul weights once instead
+(`models/convert.py::cast_for_serving`), after which the casts at use
+are free.
 
-Not in this slice: the MoE, ring-attention and pipeline branches, and
-the one-hot embedding, which exists for XLA SPMD and has no use here.
+With a `mesh` (a `DeviceMesh` from `parallel.prepare_mesh`), the
+parameters are DTensors placed by `param_logical_axes()` through
+`parallel.param_shardings`/`shard_pytree`, every rank passes the whole
+batch, activations are redistributed at each constraint of the JAX
+model (`_constrain`), and the kernels run on local shards inside
+`local_map` (`ops/sharded.py`); ring attention takes the sp axis and the
+MoE's experts the ep axis. `loss` gives the same plain scalar on every
+rank; `hidden` and `apply` give DTensors. The embedding is a
+vocab-sharded lookup where the JAX model contracts a one-hot (the same
+numbers). Not ported: the pipeline (pp > 1, ROADMAP queue 1, item 9) and
+the chunked loss under a mesh.
 """
 from __future__ import annotations
 
@@ -22,18 +32,35 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ray_tpu_torch.models.config import TransformerConfig
+from ray_tpu_torch.models.moe import MOE_PARAM_AXES, ExpertShards, moe_ffn
 from ray_tpu_torch.ops.attention import attn_remat_policy, flash_attention
 from ray_tpu_torch.ops.dispatch import resolve_device
-from ray_tpu_torch.ops.losses import chunked_lm_loss, softmax_cross_entropy
+from ray_tpu_torch.ops.losses import (chunked_lm_loss,
+                                      sharded_softmax_cross_entropy,
+                                      softmax_cross_entropy)
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
 from ray_tpu_torch.ops.rope import apply_rope_cached, rope_cos_sin
+from ray_tpu_torch.ops.sharded import (flash_attention_sharded,
+                                       rms_norm_sharded, sharded_linear,
+                                       vocab_sharded_lookup)
+from ray_tpu_torch.parallel.mesh import axis_sizes, compute_mesh
+from ray_tpu_torch.parallel.sharding import (LOGICAL_AXIS_RULES,
+                                             logical_placements,
+                                             with_logical_constraint)
 
 Params = Dict[str, Any]
 
 NORMS = ("attn_norm", "mlp_norm", "final_norm")
+
+# The sharding rules plus the activation-only logical axes (params use
+# the rules in parallel.sharding directly).
+_RULES = {**LOGICAL_AXIS_RULES, "act_embed": None, "expert_capacity": None}
 
 
 class Transformer(nn.Module):
@@ -41,12 +68,16 @@ class Transformer(nn.Module):
     parameters, `apply(params, tokens)` runs the forward and
     `loss(params, batch)` the causal LM loss."""
 
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, mesh=None):
         super().__init__()
-        if config.moe_num_experts:
+        if mesh is not None and axis_sizes(mesh).get("pp", 1) > 1:
             raise NotImplementedError(
-                "the port's Transformer has the dense FFN only so far")
+                "pipeline parallelism (a mesh with pp > 1) is not ported "
+                "yet: ROADMAP queue 1, item 9 (ray_tpu/parallel/pipeline.py)")
         self.config = config
+        self.mesh = mesh
+        # the mesh DTensors live on: `mesh` less its size-1 axes
+        self._dmesh = None if mesh is None else compute_mesh(mesh)
 
     # ------------------------------------------------------------ init
     def init(self, seed: int, device=None) -> Params:
@@ -80,19 +111,31 @@ class Transformer(nn.Module):
         def zeros(name):
             return finish(name, torch.zeros((e,), dtype=pd, device=dev))
 
+        E = c.moe_num_experts
         layers = []
         for _ in range(c.n_layers):
-            layers.append({
+            layer = {
                 "attn_norm": zeros("attn_norm"),
                 "wq": w("wq", (e, qd), std),
                 "wk": w("wk", (e, kvd), std),
                 "wv": w("wv", (e, kvd), std),
                 "wo": w("wo", (qd, e), out_std),
                 "mlp_norm": zeros("mlp_norm"),
-                "gate": w("gate", (e, f), std),
-                "up": w("up", (e, f), std),
-                "down": w("down", (f, e), out_std),
-            })
+            }
+            if E:
+                layer.update({
+                    "router": w("router", (e, E), std),
+                    "moe_gate": w("moe_gate", (E, e, f), std),
+                    "moe_up": w("moe_up", (E, e, f), std),
+                    "moe_down": w("moe_down", (E, f, e), out_std),
+                })
+            else:
+                layer.update({
+                    "gate": w("gate", (e, f), std),
+                    "up": w("up", (e, f), std),
+                    "down": w("down", (f, e), out_std),
+                })
+            layers.append(layer)
         params: Params = {
             "embed": w("embed", (c.vocab_size, e), std),
             "layers": layers,
@@ -102,39 +145,144 @@ class Transformer(nn.Module):
             params["lm_head"] = w("lm_head", (e, c.vocab_size), std)
         return params
 
+    def param_logical_axes(self) -> Params:
+        """The parameter tree with each leaf's logical axes, per layer as
+        the port keeps its layers (the JAX tree's, less the leading
+        "layers" axis)."""
+        layer = {
+            "attn_norm": ("embed",),
+            "wq": ("embed", "heads"),
+            "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"),
+            "wo": ("heads", "embed"),
+            "mlp_norm": ("embed",),
+        }
+        if self.config.moe_num_experts:
+            layer.update(MOE_PARAM_AXES)
+        else:
+            layer.update({
+                "gate": ("embed", "mlp"),
+                "up": ("embed", "mlp"),
+                "down": ("mlp", "embed"),
+            })
+        axes = {
+            "embed": ("vocab", "embed"),
+            "layers": [dict(layer) for _ in range(self.config.n_layers)],
+            "final_norm": ("embed",),
+        }
+        if not self.config.tie_embeddings:
+            axes["lm_head"] = ("embed", "vocab")
+        return axes
+
     # --------------------------------------------------------- forward
+    def _constrain(self, x, axes):
+        if self.mesh is None:
+            return x
+        return with_logical_constraint(x, axes, mesh=self.mesh,
+                                       rules=_RULES)
+
+    def _mesh_size(self, axis: str) -> int:
+        return 1 if self.mesh is None else axis_sizes(self.mesh).get(axis, 1)
+
     def _embed_lookup(self, table: torch.Tensor,
                       tokens: torch.Tensor) -> torch.Tensor:
         # gather, then cast: the same values as casting the table first
-        return table[tokens].to(self.config.activation_dtype)
+        ad = self.config.activation_dtype
+        if self.mesh is None:
+            return table[tokens].to(ad)
+        return vocab_sharded_lookup(table, tokens, self._dmesh,
+                                    _RULES).to(ad)
+
+    def _mm(self, x, w):
+        """x @ w in the activation dtype (the weight cast at use)."""
+        w = w.to(self.config.activation_dtype)
+        return x @ w if self.mesh is None else sharded_linear(x, w)
+
+    def _norm(self, x, w):
+        if self.mesh is None:
+            return rms_norm(x, w, self.config.norm_eps)
+        return rms_norm_sharded(x, w, self.config.norm_eps)
+
+    def _attention(self, q, k, v):
+        c = self.config
+        if self.mesh is None:
+            return flash_attention(q, k, v, causal=True,
+                                   block_q=c.attn_block_q,
+                                   block_k=c.attn_block_k)
+        if c.use_ring_attention and self._mesh_size("sp") > 1:
+            return ring_attention_sharded(q, k, v, self._dmesh, causal=True)
+        return flash_attention_sharded(q, k, v, self._dmesh, causal=True)
 
     def _layer(self, x: torch.Tensor, layer: Params, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
+               sin: torch.Tensor):
+        """One block; returns (x, MoE load-balance loss), the loss 0.0 for
+        the dense FFN."""
         c = self.config
         ad = c.activation_dtype
         b, s, _ = x.shape
         hd = c.head_dim
 
-        h = rms_norm(x, layer["attn_norm"], c.norm_eps)
-        q = (h @ layer["wq"].to(ad)).view(b, s, c.n_heads, hd)
-        k = (h @ layer["wk"].to(ad)).view(b, s, c.kv_heads, hd)
-        v = (h @ layer["wv"].to(ad)).view(b, s, c.kv_heads, hd)
+        h = self._norm(x, layer["attn_norm"])
+        q = self._mm(h, layer["wq"]).view(b, s, c.n_heads, hd)
+        k = self._mm(h, layer["wk"]).view(b, s, c.kv_heads, hd)
+        v = self._mm(h, layer["wv"]).view(b, s, c.kv_heads, hd)
         q = apply_rope_cached(q, cos, sin)
         k = apply_rope_cached(k, cos, sin)
-        attn = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=True,
-                               block_q=c.attn_block_q, block_k=c.attn_block_k)
+        q = self._constrain(q.transpose(1, 2),
+                            ("batch", "heads", "seq", "head_dim"))
+        attn = self._attention(q, k.transpose(1, 2), v.transpose(1, 2))
         attn = attn.transpose(1, 2).reshape(b, s, c.n_heads * hd)
-        x = x + attn @ layer["wo"].to(ad)
+        x = x + self._mm(attn, layer["wo"])
+        x = self._constrain(x, ("batch", "seq", "act_embed"))
 
-        h = rms_norm(x, layer["mlp_norm"], c.norm_eps)
-        gate = F.silu(h @ layer["gate"].to(ad))
-        up = h @ layer["up"].to(ad)
-        return x + (gate * up) @ layer["down"].to(ad)
+        h = self._norm(x, layer["mlp_norm"])
+        if c.moe_num_experts:
+            y, lb = self._moe(h, layer)
+            return self._constrain(x + y, ("batch", "seq", "act_embed")), lb
+        gate = F.silu(self._mm(h, layer["gate"]))
+        up = self._mm(h, layer["up"])
+        mlp = self._constrain(gate * up, ("batch", "seq", "mlp"))
+        x = x + self._mm(mlp, layer["down"])
+        return self._constrain(x, ("batch", "seq", "act_embed")), 0.0
+
+    def _moe(self, h, layer: Params):
+        """(MoE FFN output, load-balance loss). Under a mesh `moe_ffn`
+        runs on every rank inside `local_map` with the tokens whole, the
+        router whole, and the experts' weights split over ep (experts) and
+        tp (mlp), whole along embed; `ExpertShards` is its constrain hook.
+        The output is the same on every rank."""
+        c = self.config
+        names = ("router", "moe_gate", "moe_up", "moe_down")
+        weights = [layer[n] for n in names]
+
+        def run(x, *w, constrain=None):
+            y, aux = moe_ffn(x, *w, top_k=c.moe_top_k,
+                             capacity_factor=c.moe_capacity_factor,
+                             constrain=constrain)
+            return y, aux["moe_load_balance_loss"]
+
+        if self.mesh is None:
+            return run(h, *weights)
+        mesh = self._dmesh
+        whole = [Replicate()] * mesh.ndim
+        wp = [logical_placements(self.mesh, tuple(
+            None if a == "embed" else a for a in MOE_PARAM_AXES[n]), _RULES)
+            for n in names]
+        inp = (whole, *wp)
+        return local_map(
+            lambda x, *w: run(x, *w, constrain=ExpertShards(mesh)),
+            out_placements=(whole, whole), in_placements=inp,
+            in_grad_placements=inp, device_mesh=mesh,
+            redistribute_inputs=True)(h, *weights)
 
     def hidden(self, params: Params, tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Trunk: tokens (b, s) -> post-final-norm hidden states (b, s, e).
+        """Trunk: tokens (b, s) -> post-final-norm hidden states (b, s, e)."""
+        return self.hidden_and_aux(params, tokens, positions)[0]
+
+    def hidden_and_aux(self, params: Params, tokens: torch.Tensor,
+                       positions: Optional[torch.Tensor] = None):
+        """(hidden states, MoE load-balance loss summed over the layers).
 
         With `config.remat` each layer runs under
         `torch.utils.checkpoint` (non-reentrant) when a gradient is being
@@ -148,18 +296,26 @@ class Transformer(nn.Module):
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
+        # under a mesh, every rank holds the whole batch and takes its
+        # rows and sequence shard (no communication)
+        tokens = self._constrain(tokens, ("batch", "seq"))
         x = self._embed_lookup(params["embed"], tokens)
+        x = self._constrain(x, ("batch", "seq", "act_embed"))
         cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
+        cos = self._constrain(cos, ("batch", "seq", None, None))
+        sin = self._constrain(sin, ("batch", "seq", None, None))
         remat = c.remat and torch.is_grad_enabled()
         context_fn = (attn_remat_policy() if c.remat_policy == "save_attn"
                       else noop_context_fn)
+        moe_aux = 0.0
         for layer in params["layers"]:
             if remat:
-                x = checkpoint(self._layer, x, layer, cos, sin,
-                               use_reentrant=False, context_fn=context_fn)
+                x, lb = checkpoint(self._layer, x, layer, cos, sin,
+                                   use_reentrant=False, context_fn=context_fn)
             else:
-                x = self._layer(x, layer, cos, sin)
-        return rms_norm(x, params["final_norm"], c.norm_eps)
+                x, lb = self._layer(x, layer, cos, sin)
+            moe_aux = moe_aux + lb
+        return self._norm(x, params["final_norm"]), moe_aux
 
     def _head(self, params: Params) -> torch.Tensor:
         head = (params["embed"].T if self.config.tie_embeddings
@@ -170,7 +326,9 @@ class Transformer(nn.Module):
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens (b, s) int -> logits (b, s, vocab) in f32."""
         x = self.hidden(params, tokens, positions)
-        return (x @ self._head(params)).to(torch.float32)
+        logits = self._constrain(self._mm(x, self._head(params)),
+                                 ("batch", "seq", "vocab"))
+        return logits.to(torch.float32)
 
     forward = apply
 
@@ -180,11 +338,25 @@ class Transformer(nn.Module):
         """Causal LM loss (a 0-d f32 tensor). batch: tokens (b, s);
         optional loss_mask (b, s) aligned with tokens-as-labels:
         loss_mask[i] = 0 excludes token i from being a prediction target.
-        The dense FFN has no MoE load-balance term."""
-        c = self.config
+        An MoE model adds `moe_aux_coef` times its load-balance loss,
+        averaged over the layers. Under a mesh every rank passes the
+        whole batch and gets the same scalar."""
         tokens = batch["tokens"].long()
         mask = batch.get("loss_mask")
-        x = self.hidden(params, tokens)
+        if self.mesh is not None:
+            return self._mesh_loss(params, tokens, mask)
+        x, aux = self.hidden_and_aux(params, tokens)
+        return self._with_moe_term(self._lm_loss(params, x, tokens, mask),
+                                   aux)
+
+    def _with_moe_term(self, loss, aux):
+        c = self.config
+        if not c.moe_num_experts:
+            return loss
+        return loss + c.moe_aux_coef * aux / c.n_layers
+
+    def _lm_loss(self, params: Params, x, tokens, mask):
+        c = self.config
         if c.loss_chunk:
             # Full-length formulation (keeps seq divisible by the chunk):
             # labels[i] = tokens[i+1], the final position masked out.
@@ -201,3 +373,41 @@ class Transformer(nn.Module):
             mask = mask[:, 1:]
         loss, _ = softmax_cross_entropy(logits, tokens[:, 1:], mask=mask)
         return loss
+
+    def _mesh_loss(self, params: Params, tokens, mask) -> torch.Tensor:
+        """The loss over the mesh, in the full-length formulation (labels
+        shifted left, the last position masked out) so labels keep the
+        tokens' sharding. Per-token CE runs on each rank's rows inside
+        `local_map`: `sharded_softmax_cross_entropy` over tp where the
+        vocab is split, `softmax_cross_entropy` where it is whole."""
+        c = self.config
+        if c.loss_chunk:
+            raise NotImplementedError(
+                "the chunked LM loss under a mesh is not ported")
+        b, s = tokens.shape
+        x, aux = self.hidden_and_aux(params, tokens)
+        logits = self._constrain(self._mm(x, self._head(params)),
+                                 ("batch", "seq", "vocab"))
+        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        m = (torch.ones((b, s), dtype=torch.float32, device=tokens.device)
+             if mask is None else mask.to(torch.float32))
+        m = torch.cat([m[:, 1:], torch.zeros_like(m[:, :1])], dim=1)
+        labels = self._constrain(labels, ("batch", "seq"))
+        m = self._constrain(m, ("batch", "seq"))
+        tp = self._mesh_size("tp")
+
+        def per_token(lg, lb):
+            if tp > 1:
+                return sharded_softmax_cross_entropy(
+                    lg, lb, "tp", c.vocab_size // tp, mesh=self._dmesh)[1]
+            return softmax_cross_entropy(lg, lb)[1]
+
+        lp = logical_placements(self.mesh, ("batch", "seq", "vocab"),
+                                _RULES)
+        rp = logical_placements(self.mesh, ("batch", "seq"), _RULES)
+        pt = local_map(per_token, out_placements=list(rp),
+                       in_placements=(lp, rp),
+                       device_mesh=self._dmesh, redistribute_inputs=True)(
+                           logits, labels)
+        loss = (pt * m).sum() / m.sum().clamp_min(1.0)
+        return self._with_moe_term(loss, aux).full_tensor()

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -41,7 +42,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises otherwise, so
     a wrapper never runs its plain version on a device it was not
-    written for."""
+    written for, nor on a DTensor (whose local shards the wrappers in
+    `ops/sharded.py` hand to the kernel)."""
+    if isinstance(t, DTensor):
+        raise TypeError("a kernel wrapper takes plain tensors; under a mesh "
+                        "call it on local shards (ray_tpu_torch.ops.sharded)")
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":

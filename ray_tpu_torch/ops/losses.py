@@ -1,7 +1,7 @@
 """Loss ops: token cross-entropy in f32 and the chunked LM loss.
 
-Port of `ray_tpu/ops/losses.py`. The vocab-sharded variant
-(`sharded_softmax_cross_entropy`) belongs to the tensor-parallel slice.
+Port of `ray_tpu/ops/losses.py`, with the vocab-sharded variant
+(`sharded_softmax_cross_entropy`) over a mesh axis's group.
 """
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ray_tpu_torch.parallel import collectives
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -76,3 +78,41 @@ def chunked_lm_loss(x: torch.Tensor, head: torch.Tensor,
         else:
             total = total + _chunk_loss(*args)
     return total / mask.sum().clamp_min(1.0)
+
+
+def sharded_softmax_cross_entropy(local_logits: torch.Tensor,
+                                  labels: torch.Tensor, axis: str,
+                                  vocab_shard_size: int,
+                                  mask: Optional[torch.Tensor] = None, *,
+                                  mesh):
+    """CE when the vocab dim is sharded over mesh `axis`, on each rank's
+    local logits (inside `local_map`).
+
+    Each rank holds logits[..., lo:lo+shard]; the logsumexp and the
+    label-logit gather are allreduced over the axis, so no rank
+    materialises the full vocab. The global max is a constant shift
+    (stopped in both places it appears, so its terms cancel exactly in
+    the backward, where `lax.pmax` has no gradient to give). Returns
+    (mean loss, per-token loss), the same on every rank of the axis.
+    """
+    local_logits = local_logits.to(torch.float32)
+    lo = collectives.axis_index(axis, mesh=mesh) * vocab_shard_size
+    with torch.no_grad():
+        gmax = collectives.allreduce(local_logits.amax(dim=-1), axis, "max",
+                                     mesh=mesh)
+    shifted = local_logits - gmax[..., None]
+    sumexp = collectives.allreduce(torch.exp(shifted).sum(dim=-1), axis,
+                                   mesh=mesh)
+    lse = torch.log(sumexp) + gmax
+    local_label = labels.long() - lo
+    in_shard = (local_label >= 0) & (local_label < vocab_shard_size)
+    safe = local_label.clamp(0, vocab_shard_size - 1)
+    picked = torch.gather(local_logits, -1, safe[..., None])[..., 0]
+    label_logit = collectives.allreduce(torch.where(in_shard, picked, 0.0),
+                                        axis, mesh=mesh)
+    per_token = lse - label_logit
+    if mask is None:
+        return per_token.mean(), per_token
+    mask = mask.to(torch.float32)
+    denom = mask.sum().clamp_min(1.0)
+    return (per_token * mask).sum() / denom, per_token

@@ -360,7 +360,9 @@ class LLMEngine:
     (`stream.py`, subscribe at the `stream` address `generate` returns)
     or through `next_tokens` polling.
 
-    Not yet: a `mesh` (the parallel layer, ROADMAP queue 1, item 5).
+    Not yet: a `mesh`. A JAX replica is one process driving its mesh's
+    chips; a tp > 1 replica here is one rank process per card (ROADMAP
+    queue 1, item 13).
     """
 
     def __init__(self, model="tiny", weights=None, mesh=None,
@@ -375,8 +377,9 @@ class LLMEngine:
             config = model
         if mesh:
             raise NotImplementedError(
-                "LLMEngine(mesh=...) needs the parallel layer, not ported "
-                "yet (ROADMAP queue 1, item 5)")
+                "LLMEngine(mesh=...) needs a replica of one rank process "
+                "per card, which the parallel layer does not make: not "
+                "ported yet (ROADMAP queue 1, item 13)")
         device = resolve_device(device)
         page_size = int(page_size or CONFIG.llm_page_size)
         max_batch = int(max_batch or CONFIG.llm_max_batch)

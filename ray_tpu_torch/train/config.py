@@ -3,16 +3,21 @@
 Port of `ray_tpu/train/config.py`. Parity: reference
 python/ray/air/config.py (ScalingConfig:102, RunConfig, CheckpointConfig,
 FailureConfig). `ScalingConfig` speaks workers x GPUs (`use_gpu`,
-`gpus_per_worker`) where the JAX package speaks hosts x chips; its `mesh`
-raises until the parallel layer is ported, and `topology` (pod-slice
-placement) until `util/accelerators` is. `ElasticConfig` and
+`gpus_per_worker`) where the JAX package speaks hosts x chips. Its
+`mesh` (a `parallel.MeshSpec`) is stored, as the JAX package stores it:
+a training loop builds its DeviceMesh with `parallel.prepare_mesh` over
+the process group TorchBackend formed. `topology` (pod-slice placement)
+raises until `util/accelerators` is ported. `ElasticConfig` and
 `PipelineConfig` are copies, so configs validate the same way; `fit`
 runs the elastic path and raises on the pipeline path.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import TYPE_CHECKING, Any, Dict, Optional
+
+if TYPE_CHECKING:     # the train package loads no torch until a loop does
+    from ray_tpu_torch.parallel.mesh import MeshSpec
 
 
 @dataclasses.dataclass
@@ -74,7 +79,7 @@ class ScalingConfig:
     use_gpu: bool = False
     gpus_per_worker: int = 0            # 0 = one card
     resources_per_worker: Optional[Dict[str, float]] = None
-    mesh: Any = None                    # the parallel layer: not yet
+    mesh: Optional[MeshSpec] = None     # global mesh over all workers
     placement_strategy: str = "PACK"
     # TPU pod-slice placement in the JAX package; its counterpart comes
     # with util/accelerators (slice bundles), not ported yet
@@ -105,10 +110,6 @@ class ScalingConfig:
                 "elastic= is not supported with topology= (a pod "
                 "slice preempts atomically; run elastic across "
                 "single-host node types instead)")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ScalingConfig.mesh needs the parallel layer (DeviceMesh, "
-                "FSDP/TP plans), ROADMAP queue 1, item 5")
         if self.topology is not None:
             raise NotImplementedError(
                 "ScalingConfig.topology (pod-slice placement) needs "

@@ -56,6 +56,91 @@ def dev():
 
 
 # ------------------------------------------------------------ on the card
+@pytest.fixture
+def one_rank_mesh(dev):
+    """The one-rank nccl mesh `prepare_mesh` makes on the card when the
+    process has no group (every axis of size 1)."""
+    from ray_tpu_torch.parallel import MeshSpec, prepare_mesh
+    return prepare_mesh(MeshSpec())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_inside_local_map_gives_the_direct_calls_bits(one_rank_mesh,
+                                                            causal):
+    """`flash_attention_sharded` on a one-rank nccl mesh launches the
+    same kernels on the same tensors as the direct call: O and the grads
+    of q, k and v bit-equal, forward and backward."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from ray_tpu_torch.ops.sharded import flash_attention_sharded
+    from ray_tpu_torch.parallel.mesh import compute_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = compute_mesh(one_rank_mesh)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(2, h, 512, 128, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for h in (16, 4, 4))
+    do = torch.randn(2, 16, 512, 128, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+
+    def grads(run):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = run(*leaves)
+        out.backward(do)
+        return out.detach(), [t.grad for t in leaves]
+
+    want, want_g = grads(lambda *a: flash_attention(*a, causal=causal))
+    before = (attention.flash_attention.launches,
+              attention.flash_attention.dkdv_launches,
+              attention.flash_attention.dq_launches)
+
+    def sharded(*a):
+        d = [DTensor.from_local(t, mesh, [Replicate()]) for t in a]
+        return flash_attention_sharded(*d, mesh, causal=causal).to_local()
+    got, got_g = grads(sharded)
+    torch.cuda.synchronize()
+    assert (attention.flash_attention.launches,
+            attention.flash_attention.dkdv_launches,
+            attention.flash_attention.dq_launches) == tuple(
+                n + 1 for n in before)
+    assert torch.equal(got, want)
+    for a, b in zip(got_g, want_g):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rms_norm_inside_local_map_gives_the_direct_calls_bits(
+        one_rank_mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from ray_tpu_torch.ops.sharded import rms_norm_sharded
+    from ray_tpu_torch.parallel.mesh import compute_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = compute_mesh(one_rank_mesh)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, 2048, 2048, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    w = 0.1 * torch.randn(2048, generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+    g = torch.randn_like(x)
+
+    def grads(run):
+        xs, ws = (t.detach().clone().requires_grad_(True) for t in (x, w))
+        y = run(xs, ws)
+        y.backward(g)
+        return y.detach(), xs.grad, ws.grad
+
+    want = grads(lambda a, b: rms_norm(a, b, 1e-5))
+    before = rms_norm.launches
+    got = grads(lambda a, b: rms_norm_sharded(
+        DTensor.from_local(a, mesh, [Replicate()]),
+        DTensor.from_local(b, mesh, [Replicate()]), 1e-5).to_local())
+    torch.cuda.synchronize()
+    assert rms_norm.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rows,d", [(1, 64), (8, 4096), (1000, 4096),

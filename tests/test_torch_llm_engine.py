@@ -338,7 +338,7 @@ def test_close_ends_every_thread_and_frees_the_engine():
 
 
 def test_engine_refuses_what_the_port_lacks():
-    with pytest.raises(NotImplementedError, match="parallel layer"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         LLMEngine(model="tiny", mesh={"tp": 2}, device="cpu")
     # weights: an ObjectRef, the params dict or None, nothing else
     with pytest.raises(TypeError, match="ObjectRef"):

@@ -215,8 +215,20 @@ def test_paged_decode_matches_full_forward():
 
 
 def test_moe_config_is_refused():
+    """The MoE config builds and gives the JAX MoE model's logits (f32,
+    1e-5 absolute / 1e-4 relative) on the JAX parameters; the paged
+    decode path refuses it, as the JAX one does
+    (`ray_tpu/models/decode.py:47`)."""
+    jcfg = dataclasses.replace(jtiny(), moe_num_experts=4)
     cfg = dataclasses.replace(tiny(), moe_num_experts=4)
-    with pytest.raises(NotImplementedError):
-        Transformer(cfg)
+    jmodel = JTransformer(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                             cfg, device="cpu")
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16))
+    got = Transformer(cfg).apply(params, torch.as_tensor(tokens))
+    want = jax.jit(jmodel.apply)(jparams, jnp.asarray(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-4)
     with pytest.raises(NotImplementedError):
         decode.init_paged_cache(cfg, 4, 8, device="cpu")

@@ -311,7 +311,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "actor", "native", "serve", "serve.llm",
                  "serve.llm.router", "serve.llm.stream", "serve.llm.engine",
                  "_private.node_agent", "cluster_utils", "autoscaler",
-                 "util.state", "train.elastic"):
+                 "util.state", "train.elastic", "parallel.mesh",
+                 "parallel.sharding", "parallel.collectives",
+                 "ops.ring_attention", "ops.sharded", "models.moe",
+                 "dryrun"):
         assert "ray_tpu_torch." + name in modules, name
     imported, modules = run(
         "import sys, pkgutil, importlib\n"
@@ -325,3 +328,6 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         + report)
     assert imported >= 12, sorted(modules)
     assert "ray_tpu_torch._private.runtime" not in modules
+    for name in ("ops.ring_attention", "ops.sharded", "models.moe",
+                 "parallel.collectives"):
+        assert "ray_tpu_torch." + name in modules, name
