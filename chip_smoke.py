@@ -95,7 +95,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      6 AdamW steps in process, then the same 6 through `TorchTrainer`
      from one `num_gpus=1` worker with `ScalingConfig(mesh=MeshSpec())`,
      its losses held to the in-process ones. One card makes every mesh
-     axis size 1: no multi-rank time is taken.
+     axis size 1: no multi-rank time is taken;
+ 12. pipeline: (a) a channel DAG of two `num_gpus=0.5` actors
+     (`ActorMethod.bind`, `experimental_compile(enable_shm_channels=
+     True)`): the first returns a bf16 CUDA tensor of the bench
+     activation's shape, the channel lands it on the second's card, 20
+     executions whose checksums must equal the first's bit for bit, with
+     the channel's write and read time; (b) the bench model at full width
+     and depth through `TorchTrainer(pipeline_stages=2)`: two stage
+     workers with `GPU: 0.5` each, 8 layers a stage, the 1F1B schedule
+     over shm channels, 2 microbatches, 5 steps of a per-stage AdamW:
+     losses held to the same steps in one process and to phase 8's step
+     0, exact launch counts a step read in each stage worker (32 / 16 /
+     16 / 64 on stage 0, 16 / 16 / 16 / 34 on stage 1), the bubble
+     fraction from the stage spans, each stage's peak memory; after
+     `shutdown()` the card's memory is back.
 The last three lines are the card (`nvidia-smi`), the kernels as JSON,
 and `{"ok": true, "device": {...}}`.
 """
@@ -2798,6 +2812,417 @@ def serve_llm_phase(served: dict, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+# The pipeline phase: executions of the channel DAG, microbatches and
+# steps of the 2-stage pipeline
+DAG_EXECS, PIPE_STAGES, PIPE_MB, PIPE_STEPS = 20, 2, 2, 5
+# tolerances, set from the arithmetic before any run:
+#  * the pipeline's losses against the same steps in one process: the
+#    same stage functions, kernels, microbatches, recompute, sum order
+#    and AdamW, and the channels carry the activations' and cotangents'
+#    bits; only the embedding's backward may add a token's rows in
+#    another order (atomics), a bf16 ulp of a weight a step carried on
+#    by AdamW, so 1e-3 of the loss (bit-equal expected, and printed);
+#  * step 0 against train()'s step 0: the same weights and tokens, the
+#    mean of two equal microbatch means against the full-batch mean;
+#    the matmuls run at batch 1 instead of 2 and may tile and round in
+#    another order, so 1e-3 of the loss.
+TOL.update({"pipeline_loss_rel": 1e-3, "pipeline_step0_rel": 1e-3})
+
+
+def this_module():
+    """This file as the module `chip_smoke`, also when it runs as
+    `__main__`: what a worker is sent from it then pickles by reference,
+    and the worker imports it from the repo root on its PYTHONPATH."""
+    import importlib
+    return importlib.import_module("chip_smoke")
+
+
+class DagProducer:
+    """Phase 12(a)'s first actor: a bf16 tensor of the bench activation's
+    shape on its card, from a seed, and the checksum of each one made."""
+
+    def __init__(self, shape, device: str):
+        self.shape, self.device, self.sums = tuple(shape), device, []
+
+    def make(self, seed):
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        t = torch.randn(self.shape, generator=gen, device=self.device,
+                        dtype=torch.float32).to(torch.bfloat16)
+        self.sums.append(checksum(t))
+        return t
+
+    def checksums(self):
+        return self.sums
+
+
+class DagConsumer:
+    """Phase 12(a)'s second actor: the checksum of what arrived, where."""
+
+    def take(self, t):
+        return {"sum": checksum(t), "device": str(t.device),
+                "dtype": str(t.dtype), "shape": list(t.shape)}
+
+
+def channel_span_ms(procs: list, name: str) -> list:
+    """Durations (ms) of the tracing plane's channel spans `name`."""
+    return [(ev[6] - ev[5]) / 1e6 for proc in procs
+            for ev in proc.get("events", ()) if ev[3] == "channel"
+            and ev[4] == name]
+
+
+def dag_phase(dev, shape=(1, TRAIN_S, TRAIN_D)) -> dict:
+    """Phase 12(a): two actors (`num_gpus=0.5` each on the card) chained
+    by `ActorMethod.bind` and compiled with `enable_shm_channels=True`;
+    the first returns a bf16 CUDA tensor, which the channel carries as
+    raw bytes and lands on the second actor's own card. DAG_EXECS
+    executions, each checksum equal to the producer's bit for bit."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+    me = this_module()
+    on_card = dev.type == "cuda"
+    nbytes = int(np.prod(shape)) * 2
+    opts = {"num_gpus": 0.5} if on_card else {}
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        a = ray_tpu_torch.remote(**opts)(me.DagProducer).remote(
+            shape, "cuda" if on_card else "cpu")
+        b = ray_tpu_torch.remote(**opts)(me.DagConsumer).remote()
+        with InputNode() as inp:
+            out = b.take.bind(a.make.bind(inp))
+        dag = out.experimental_compile(enable_shm_channels=True,
+                                       buffer_size_bytes=nbytes + (1 << 16))
+        got, exec_ms = [], []
+        try:
+            for i in range(DAG_EXECS):
+                t0 = time.perf_counter()
+                got.append(dag.execute(i).get(timeout=120))
+                exec_ms.append((time.perf_counter() - t0) * 1e3)
+            from ray_tpu_torch._private import context as rt_ctx
+            procs = rt_ctx.get_ctx().state_op("trace_dump").get(
+                "processes", [])
+        finally:
+            dag.teardown()
+        want = ray_tpu_torch.get(a.checksums.remote(), timeout=60)
+    finally:
+        ray_tpu_torch.shutdown()
+    sums = [g["sum"] for g in got]
+    if sums != want:
+        raise AssertionError(f"channel DAG checksums {sums} != the "
+                             f"producer's {want}")
+    if on_card and any(not g["device"].startswith("cuda") for g in got):
+        raise AssertionError(f"the consumer got tensors on "
+                             f"{[g['device'] for g in got]}")
+    if any(g["dtype"] != "torch.bfloat16" or g["shape"] != list(shape)
+           for g in got):
+        raise AssertionError(f"the consumer got {got[0]}")
+    write = channel_span_ms(procs, "ch.write:make")
+    read = channel_span_ms(procs, "ch.read:make")
+    return {"executions": DAG_EXECS, "bit_equal": True,
+            "bytes_per_execution": nbytes, "consumer_device": got[0]["device"],
+            "execute_ms_p50": statistics.median(exec_ms[1:]),
+            "execute_ms": [round(t, 3) for t in exec_ms],
+            "channel_write_ms_p50": (statistics.median(write)
+                                     if write else "not measured"),
+            "channel_read_ms_p50": (statistics.median(read)
+                                    if read else "not measured"),
+            "channel_spans": [len(write), len(read)]}
+
+
+def pipe_layers(cfg, dev) -> list:
+    """The model's params (seed 0) as the pipeline's list of layers: the
+    first layer also holds the embedding, the last the final norm and
+    the head."""
+    params = Transformer(cfg).init(0, device=dev)
+    layers = [dict(layer) for layer in params["layers"]]
+    layers[0]["embed"] = params["embed"]
+    layers[-1]["final_norm"] = params["final_norm"]
+    layers[-1]["lm_head"] = params["lm_head"]
+    return layers
+
+
+_PIPE_MODELS: dict = {}
+
+
+def pipe_stage(layers, x, cfg_dict):
+    """One pipeline stage of the model: the embedding where the stage
+    holds it (x is then the tokens), its layers, and where it holds them
+    the final norm and the head (the output is then f32 logits). The
+    same ops, in the same order, as `Transformer.loss`."""
+    from ray_tpu_torch.models.config import TransformerConfig
+    from ray_tpu_torch.ops.rope import rope_cos_sin
+    key = json.dumps(cfg_dict, sort_keys=True)
+    if key not in _PIPE_MODELS:
+        _PIPE_MODELS[key] = Transformer(TransformerConfig(**cfg_dict))
+    model = _PIPE_MODELS[key]
+    c = model.config
+    if "embed" in layers[0]:
+        x = model._embed_lookup(layers[0]["embed"], x.long())
+    b, s = x.shape[:2]
+    pos = torch.arange(s, device=x.device).expand(b, s)
+    cos, sin = rope_cos_sin(pos, c.head_dim, c.rope_theta)
+    for layer in layers:
+        x, _ = model._layer(x, layer, cos, sin)
+    if "final_norm" in layers[-1]:
+        x = model._norm(x, layers[-1]["final_norm"])
+        x = (x @ layers[-1]["lm_head"].to(c.activation_dtype)).to(
+            torch.float32)
+    return x
+
+
+def pipe_loss(logits, tokens):
+    """The microbatch's mean next-token CE (`Transformer.loss`'s)."""
+    from ray_tpu_torch.ops.losses import softmax_cross_entropy
+    return softmax_cross_entropy(logits[:, :-1], tokens.long()[:, 1:])[0]
+
+
+def pipe_adamw(leaves_: list):
+    """bench.py's AdamW over a stage's leaves."""
+    return torch.optim.AdamW(leaves_, lr=1e-4, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=1e-4)
+
+
+class PipeAdamW:
+    """A stage's `update_fn`: bench.py's AdamW over the stage's leaves,
+    built on the stage process at the first call. Each call also appends
+    to `log_path`, from the stage process, the kernel launches since the
+    stage's loop unpickled this object (its start), the time, the peak
+    device memory and what the process sees of the card."""
+
+    def __init__(self, log_path: str):
+        self.log_path, self.opt, self.base = log_path, None, None
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.base = kernel_counts()           # the stage loop's start
+
+    def __call__(self, params, grads, step):
+        from torch.utils._pytree import tree_leaves
+        ps = tree_leaves(params)
+        if self.opt is None:
+            self.opt = pipe_adamw(ps)
+        for p, g in zip(ps, tree_leaves(grads)):
+            p.grad = g
+        self.opt.step()
+        on_card = ps[0].is_cuda
+        if on_card:
+            torch.cuda.synchronize()
+        counts = kernel_counts()
+        rec = {"step": step, "pid": os.getpid(), "t": time.time(),
+               # the first stage holds the embedding (`pipe_layers`)
+               "first": "embed" in params[0],
+               "launches": {k: counts[k] - self.base[k] for k in counts},
+               "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                if on_card else 0.0),
+               "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "device": (torch.cuda.get_device_name(ps[0].device)
+                          if on_card else "cpu")}
+        with open(self.log_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        return params
+
+
+def pipe_reference(cfg, dev, tokens) -> list:
+    """The pipeline's steps in this one process: the same two stage
+    functions on the same microbatches, a non-last stage's forward
+    without autograd and its backward recomputed (`stage_grads`), grads
+    summed over the microbatches in their order, the same AdamW. Returns
+    each step's loss."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from ray_tpu_torch.parallel.pipeline import partition_layers, slice_stage
+    from ray_tpu_torch.train.pipeline import stage_grads
+    cfg_dict = dataclasses.asdict(cfg)
+    layers = pipe_layers(cfg, dev)
+    stages = [slice_stage(layers, *p)
+              for p in partition_layers(len(layers), PIPE_STAGES)]
+    opts = [pipe_adamw(tree_leaves(st)) for st in stages]
+    bs = tokens.shape[0] // PIPE_MB
+    losses = []
+    for _ in range(PIPE_STEPS):
+        grads = [tree_map(torch.zeros_like, st) for st in stages]
+        acc = 0.0
+        for m in range(PIPE_MB):
+            x = tokens[m * bs:(m + 1) * bs]
+            with torch.no_grad():
+                y = pipe_stage(stages[0], x, cfg_dict)
+            loss_m, dp1, dx = stage_grads(
+                pipe_stage, (cfg_dict,), stages[1], y,
+                lambda out, x=x: pipe_loss(out, x))
+            acc += float(loss_m)
+            _, dp0, _ = stage_grads(pipe_stage, (cfg_dict,), stages[0], x,
+                                    lambda out: out, dx)
+            grads = [tree_map(lambda g, d: g + d, g_, d_)
+                     for g_, d_ in zip(grads, (dp0, dp1))]
+        for st, g_, opt in zip(stages, grads, opts):
+            for p, g in zip(tree_leaves(st), tree_leaves(g_)):
+                p.grad = g / PIPE_MB
+            opt.step()
+        losses.append(acc / PIPE_MB)
+    return losses
+
+
+def pipe_launches(cfg, stage: int) -> dict:
+    """Launches a step in a stage worker: 8 layers a stage, PIPE_MB
+    microbatches. A non-last stage runs each microbatch's forward twice
+    (without autograd, then the recompute in its backward) and its
+    backward once; the last stage runs forward and backward once. The
+    RMSNorm backward is plain torch, so RMSNorm counts forwards only:
+    two a layer, and the final norm on the last stage."""
+    per_stage = cfg.n_layers // PIPE_STAGES
+    last = stage == PIPE_STAGES - 1
+    fwd = (1 if last else 2) * per_stage * PIPE_MB
+    return {"flash_fwd": fwd, "flash_dkdv": per_stage * PIPE_MB,
+            "flash_dq": per_stage * PIPE_MB,
+            "rms_norm": 2 * fwd + (PIPE_MB if last else 0)}
+
+
+def pipeline_phase(trained: dict, dev, smi: str, cfg=None,
+                   batch: int = TRAIN_B, seq: int = TRAIN_S) -> dict:
+    """Phase 12: (a) `dag_phase`; (b) the bench model at full width and
+    depth through `TorchTrainer(pipeline_stages=2)`: two stage workers
+    with `GPU: 0.5` each on the one card, 8 layers a stage (the embedding
+    on stage 0; the final norm, the head and the loss on stage 1), the
+    1F1B schedule over shm channels, PIPE_MB microbatches of train()'s
+    batch, PIPE_STEPS steps of a per-stage AdamW. Held to: the same
+    steps in this process (`pipe_reference`, expected bit-equal: the
+    kernels are deterministic and the channels carry bits), within
+    TOL["pipeline_loss_rel"]; train()'s step-0 loss within
+    TOL["pipeline_step0_rel"] (the mean of two equal microbatch means
+    against the full-batch mean); a finite, falling loss; exact launch
+    counts a step in each stage worker (`pipe_launches`), read there;
+    both workers on the card; after shutdown the card's memory back."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.parallel.pipeline import partition_layers
+    from ray_tpu_torch.train import (PipelineConfig, ScalingConfig,
+                                     TorchTrainer)
+    me = this_module()
+    cfg = cfg or bench.bench_config()
+    on_card = dev.type == "cuda"
+    out = {"dag": dag_phase(dev, (1, seq, cfg.d_model))}
+    log(f"pipeline (a) [{smi}]: {json.dumps(out['dag'])}")
+
+    tokens = bench.make_batch(cfg, batch, seq, dev)["tokens"]
+    t0 = time.perf_counter()
+    ref_losses = pipe_reference(cfg, dev, tokens)
+    ref_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = [{k: v.cpu() for k, v in layer.items()}
+              for layer in pipe_layers(cfg, dev)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    if on_card:
+        torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    host_tokens = tokens.cpu().numpy()
+    act_bytes = (batch // PIPE_MB) * seq * cfg.d_model * 2
+    tok_bytes = (batch // PIPE_MB) * seq * host_tokens.itemsize
+    log_dir = tempfile.mkdtemp(prefix="rtt_pipeline_phase_")
+    log_path = os.path.join(log_dir, "stages.jsonl")
+    res = {"GPU": 0.5, "CPU": 1} if on_card else {"CPU": 1}
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        fit_at = time.time()
+        result = TorchTrainer(
+            pipeline_stages=PIPE_STAGES,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card,
+                                         resources_per_worker=res),
+            pipeline_config=PipelineConfig(
+                init_params=layers, stage_fn=me.pipe_stage,
+                loss_fn=me.pipe_loss, consts=(dataclasses.asdict(cfg),),
+                batch_fn=lambda step: (host_tokens, host_tokens),
+                steps=PIPE_STEPS, num_microbatches=PIPE_MB,
+                schedule="1f1b", transport="shm",
+                channel_capacity_bytes=act_bytes + (1 << 16),
+                update_fn=me.PipeAdamW(log_path))).fit()
+        fit_s = time.time() - fit_at
+    finally:
+        ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 60
+    while (torch.cuda.mem_get_info()[0] < free0 - 2 ** 30
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    not_back = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 30
+    with open(log_path) as f:
+        recs = [json.loads(line) for line in f]
+    shutil.rmtree(log_dir, ignore_errors=True)
+    if result.error is not None:
+        raise AssertionError(f"pipeline TorchTrainer failed: "
+                             f"{result.error!r}")
+    if not_back > 1.0:
+        raise AssertionError(f"the pipeline left {not_back:.2f} GiB of the "
+                             f"card in use after shutdown")
+    losses = [h["loss"] for h in result.metrics_history]
+    if len(losses) != PIPE_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"pipeline losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"pipeline loss did not fall: {losses}")
+    ref_rel = rel_losses(losses, ref_losses, TOL["pipeline_loss_rel"],
+                         "pipeline against its one-process reference")
+    step0_rel = abs(losses[0] - trained["losses"][0]) / trained["losses"][0]
+    if step0_rel > TOL["pipeline_step0_rel"]:
+        raise AssertionError(f"pipeline step 0 loss {losses[0]} against "
+                             f"train()'s {trained['losses'][0]}")
+    pids = sorted({r["pid"] for r in recs})
+    if len(pids) != PIPE_STAGES:
+        raise AssertionError(f"stage records from pids {pids}")
+    stages, per_step = [], []
+    first = {r["pid"] for r in recs if r["first"]}
+    for stage, pid in enumerate(sorted(pids, key=lambda p: p not in first)):
+        mine = sorted((r for r in recs if r["pid"] == pid),
+                      key=lambda r: r["step"])
+        want = pipe_launches(cfg, stage)
+        prev = {k: 0 for k in want}
+        steps = []
+        for r in mine:
+            steps.append({k: r["launches"][k] - prev[k] for k in want})
+            prev = r["launches"]
+        if steps != [want] * PIPE_STEPS:
+            raise AssertionError(f"stage {stage} launched {steps} a step, "
+                                 f"expected {want}")
+        if on_card and (mine[0]["cuda_visible_devices"] == ""
+                        or "H100" not in mine[0]["device"]
+                        and not mine[0]["device"].startswith("NVIDIA")):
+            raise AssertionError(f"stage {stage} saw {mine[0]}")
+        per_step.append(want)
+        stages.append({
+            "pid": pid, "peak_mem_gib": mine[-1]["peak_mem_gib"],
+            "device": mine[0]["device"],
+            "cuda_visible_devices": mine[0]["cuda_visible_devices"],
+            "launches_per_step": want,
+            "launches": mine[-1]["launches"],
+            "update_times": [r["t"] for r in mine]})
+    # the last stage's updates end its steps; step 1's interval also
+    # holds stage 0's first AdamW step (its state made) and the first
+    # calls' set-up, so the p50 is of steps 2 on
+    t_last = stages[-1]["update_times"]
+    step_ms = [(b - a) * 1e3 for a, b in zip(t_last, t_last[1:])]
+    n_parts = partition_layers(cfg.n_layers, PIPE_STAGES)
+    out["pipeline"] = {
+        "stages": PIPE_STAGES, "layers_per_stage": [c for _, c in n_parts],
+        "microbatches": PIPE_MB, "steps": PIPE_STEPS, "fit_s": fit_s,
+        "losses": losses, "reference_losses": ref_losses,
+        "reference_s": ref_s, "bit_equal": losses == ref_losses,
+        "loss_rel_err_max": ref_rel, "step0_rel_to_train": step0_rel,
+        "train_step0_loss": trained["losses"][0],
+        "step_ms": [round(t, 3) for t in step_ms],
+        "step_ms_p50": statistics.median(step_ms[1:]),
+        "train_step_ms_p50": trained.get("step_ms_p50"),
+        "bubble_fraction": result.metrics.get("bubble_fraction",
+                                              "not measured"),
+        "channel_bytes_per_step": PIPE_MB * (2 * act_bytes + 2 * tok_bytes),
+        "activation_bytes": act_bytes,
+        "not_returned_gib": not_back,
+        "stages_detail": [{k: v for k, v in s.items()
+                           if k != "update_times"} for s in stages],
+        "launches": [s["launches"] for s in stages]}
+    log(f"pipeline (b) [{smi}]: {json.dumps(out['pipeline'])}")
+    return out
+
+
 def resources(res: dict, kind: str) -> dict:
     """A flash kernel's resources at head_dim 128 (the main paths'), then
     ptxas's and the card's numbers at both head dims."""
@@ -2875,6 +3300,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     parallel = parallel_phase(trained, dev, smi)
     log("parallel: " + json.dumps(parallel))
+    gc.collect()
+    torch.cuda.empty_cache()
+    piped = pipeline_phase(trained, dev, smi)
+    log("pipeline: " + json.dumps(piped))
     # launches on each main path, each read just after that path ran
     paths = {"engine_core": served["launches"],
              "llm_engine": served["llm_engine"]["launches"],
@@ -2890,7 +3319,9 @@ def main() -> None:
              "mesh_dense_5_steps": parallel["dense_launches"],
              "moe_parity_forward": parallel["moe_parity"]["launches"],
              "moe_in_process_6_steps": parallel["moe_in_process"]["launches"],
-             "moe_trainer_6_steps": parallel["moe_trainer"]["launches"]}
+             "moe_trainer_6_steps": parallel["moe_trainer"]["launches"],
+             "pipeline_stage0_5_steps": piped["pipeline"]["launches"][0],
+             "pipeline_stage1_5_steps": piped["pipeline"]["launches"][1]}
     for name in ("flash_fwd", "flash_dkdv", "flash_dq", "rms_norm"):
         if sum(p[name] for p in paths.values()) == 0:
             raise AssertionError(f"{name} never launched on a main path")

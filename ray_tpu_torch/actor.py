@@ -175,11 +175,10 @@ class ActorMethod:
         return refs[0] if num_returns == 1 else refs
 
     def bind(self, *args, **kwargs):
-        """Build a DAG node from this method (reference dag bind API).
-        The port's DAG is ROADMAP.md, queue 1, item 9; until then this
-        raises."""
-        raise NotImplementedError(
-            "ray_tpu_torch has no DAG yet (ROADMAP.md, queue 1, item 9)")
+        """Build a DAG node from this method (reference dag bind API);
+        compose with InputNode and experimental_compile (ray_tpu_torch.dag)."""
+        from ray_tpu_torch.dag import ClassMethodNode
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(f"Actor method {self._name!r} must be invoked "

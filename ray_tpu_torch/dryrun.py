@@ -2,12 +2,12 @@
 
 The twin of `__graft_entry__.py::dryrun_multichip`: the FULL training
 step (loss, grad, AdamW) of a tiny Transformer over n-rank meshes with
-real dp/fsdp/tp/sp/ep shardings (ring attention on the sp mesh, an MoE
-model on the ep mesh), three steps each, whose losses and grad norms
-must match a one-process run of the same model: a sharding-correctness
-gate. The JAX function runs on n virtual CPU devices of one process;
-PyTorch runs one process per rank, so this spawns n processes that join
-one gloo group. The pipeline mesh (pp) waits for ROADMAP item 9.
+real dp/fsdp/tp/sp/pp/ep shardings (ring attention on the sp mesh, the
+GPipe schedule on the pp mesh, an MoE model on the ep mesh), three steps
+each, whose losses and grad norms must match a one-process run of the
+same model: a sharding-correctness gate. The JAX function runs on n
+virtual CPU devices of one process; PyTorch runs one process per rank,
+so this spawns n processes that join one gloo group.
 
     python -m ray_tpu_torch.dryrun 8      # eight ranks, three meshes
 """
@@ -38,12 +38,14 @@ LOSS_RTOL, GRAD_NORM_RTOL = 2e-3, 5e-3
 
 
 def _mesh_specs_for(n: int) -> list:
-    """Mesh configs covering dp/fsdp/tp/sp/ep across the dry run (the JAX
-    list less its (pp, dp, tp) mesh)."""
+    """Mesh configs covering dp/fsdp/tp/sp/pp/ep across the dry run (the
+    JAX list): the (pp, dp, tp) mesh runs the GPipe microbatch schedule
+    (parallel/pipeline.py) against the same ground truth."""
     if n % 8 == 0:
         return [
             MeshSpec(dp=n // 4, fsdp=2, tp=2, sp=1),
             MeshSpec(dp=n // 8, fsdp=2, tp=2, sp=2),
+            MeshSpec(pp=2, dp=n // 4, tp=2),
             MeshSpec(dp=n // 4, ep=2, tp=2),   # MoE expert parallelism
         ]
     if n % 2 == 0:
@@ -60,6 +62,8 @@ def _tiny_config(use_ring: bool) -> TransformerConfig:
 
 def config_for(sizes: dict) -> TransformerConfig:
     cfg = _tiny_config(use_ring=sizes.get("sp", 1) > 1)
+    if sizes.get("pp", 1) > 1:
+        cfg = dataclasses.replace(cfg, pipeline_microbatches=2)
     ep = sizes.get("ep", 1)
     if ep > 1:
         # MoE on the ep axis; generous capacity so the sharded run
@@ -70,8 +74,10 @@ def config_for(sizes: dict) -> TransformerConfig:
 
 
 def tokens_for(sizes: dict, cfg: TransformerConfig) -> torch.Tensor:
-    """Batch divisible by dp*fsdp, seq by sp; from numpy seed 1."""
-    batch = max(2, sizes.get("dp", 1) * sizes.get("fsdp", 1))
+    """Batch divisible by dp*fsdp and by the pp microbatches, seq by sp;
+    from numpy seed 1."""
+    batch = max(2, sizes.get("dp", 1) * sizes.get("fsdp", 1),
+                2 * cfg.pipeline_microbatches)
     seq = 32 * max(sizes.get("sp", 1), 2)
     return torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (batch, seq)))
@@ -128,8 +134,8 @@ def check_spec(spec: MeshSpec, n_steps: int = 3) -> dict:
     t0 = time.perf_counter()
     losses, gnorms = run_steps(model, params, tokens, n_steps)
     sharded_s = time.perf_counter() - t0
-    ref_model = Transformer(dataclasses.replace(cfg,
-                                                use_ring_attention=False))
+    ref_model = Transformer(dataclasses.replace(
+        cfg, use_ring_attention=False, pipeline_microbatches=0))
     ref_losses, ref_gnorms = run_steps(ref_model, ref_model.init(0, "cpu"),
                                        tokens, n_steps)
     for i, (l, rl, g, rg) in enumerate(zip(losses, ref_losses, gnorms,

@@ -21,8 +21,10 @@ model (`_constrain`), and the kernels run on local shards inside
 MoE's experts the ep axis. `loss` gives the same plain scalar on every
 rank; `hidden` and `apply` give DTensors. The embedding is a
 vocab-sharded lookup where the JAX model contracts a one-hot (the same
-numbers). Not ported: the pipeline (pp > 1, ROADMAP queue 1, item 9) and
-the chunked loss under a mesh.
+numbers). On a mesh with pp > 1 and `pipeline_microbatches > 0` the
+layers run as a GPipe pipeline over pp (`parallel/pipeline.py`): each pp
+rank runs its own stage's layers, and every rank gets the last stage's
+hidden states, as the JAX model's `pipeline_apply` gives them.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
@@ -40,7 +42,7 @@ from ray_tpu_torch.models.config import TransformerConfig
 from ray_tpu_torch.models.moe import MOE_PARAM_AXES, ExpertShards, moe_ffn
 from ray_tpu_torch.ops.attention import attn_remat_policy, flash_attention
 from ray_tpu_torch.ops.dispatch import resolve_device
-from ray_tpu_torch.ops.losses import (chunked_lm_loss,
+from ray_tpu_torch.ops.losses import (chunked_ce_sum, chunked_lm_loss,
                                       sharded_softmax_cross_entropy,
                                       softmax_cross_entropy)
 from ray_tpu_torch.ops.norms import rms_norm
@@ -50,6 +52,7 @@ from ray_tpu_torch.ops.sharded import (flash_attention_sharded,
                                        rms_norm_sharded, sharded_linear,
                                        vocab_sharded_lookup)
 from ray_tpu_torch.parallel.mesh import axis_sizes, compute_mesh
+from ray_tpu_torch.parallel.pipeline import pipeline_apply
 from ray_tpu_torch.parallel.sharding import (LOGICAL_AXIS_RULES,
                                              logical_placements,
                                              with_logical_constraint)
@@ -63,6 +66,16 @@ NORMS = ("attn_norm", "mlp_norm", "final_norm")
 _RULES = {**LOGICAL_AXIS_RULES, "act_embed": None, "expert_capacity": None}
 
 
+def _rows_like(c: torch.Tensor, xm: torch.Tensor) -> torch.Tensor:
+    """The first rows of `c` (a full-batch cache) for microbatch `xm`,
+    taken from each rank's local rows when both are DTensors."""
+    if isinstance(c, DTensor):
+        rows = xm.to_local().shape[0]
+        return DTensor.from_local(c.to_local()[:rows], c.device_mesh,
+                                  c.placements, run_check=False)
+    return c[:xm.shape[0]]
+
+
 class Transformer(nn.Module):
     """Functional model for one TransformerConfig: `init` makes the
     parameters, `apply(params, tokens)` runs the forward and
@@ -70,10 +83,6 @@ class Transformer(nn.Module):
 
     def __init__(self, config: TransformerConfig, mesh=None):
         super().__init__()
-        if mesh is not None and axis_sizes(mesh).get("pp", 1) > 1:
-            raise NotImplementedError(
-                "pipeline parallelism (a mesh with pp > 1) is not ported "
-                "yet: ROADMAP queue 1, item 9 (ray_tpu/parallel/pipeline.py)")
         self.config = config
         self.mesh = mesh
         # the mesh DTensors live on: `mesh` less its size-1 axes
@@ -294,6 +303,17 @@ class Transformer(nn.Module):
         """
         c = self.config
         b, s = tokens.shape
+        pipelined = self._mesh_size("pp") > 1 and c.pipeline_microbatches > 0
+        if pipelined and c.moe_num_experts:
+            raise NotImplementedError(
+                "MoE + pipeline parallelism is not supported yet "
+                "(the pipeline stage carries activations only)")
+        if pipelined and positions is not None:
+            raise NotImplementedError(
+                "pipeline parallelism assumes default positions "
+                "(rope caches are sliced per microbatch, which is "
+                "only exact when rows share the arange positions); "
+                "pass positions=None with pp>1")
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
         # under a mesh, every rank holds the whole batch and takes its
@@ -307,13 +327,29 @@ class Transformer(nn.Module):
         remat = c.remat and torch.is_grad_enabled()
         context_fn = (attn_remat_policy() if c.remat_policy == "save_attn"
                       else noop_context_fn)
+
+        def run_layer(x, layer, cos, sin):
+            if remat and torch.is_grad_enabled():
+                return checkpoint(self._layer, x, layer, cos, sin,
+                                  use_reentrant=False, context_fn=context_fn)
+            return self._layer(x, layer, cos, sin)
+
+        if pipelined:
+            # rope rides as consts, full-batch; rows are identical
+            # (positions broadcast from arange), so a microbatch takes
+            # the first rows of each rank's local caches
+            def stage(stage_layers, xm, cos, sin):
+                cm, sm = _rows_like(cos, xm), _rows_like(sin, xm)
+                for layer in stage_layers:
+                    xm, _ = run_layer(xm, layer, cm, sm)
+                return xm
+
+            x = pipeline_apply(self.mesh, stage, params["layers"], x,
+                               c.pipeline_microbatches, consts=(cos, sin))
+            return self._norm(x, params["final_norm"]), 0.0
         moe_aux = 0.0
         for layer in params["layers"]:
-            if remat:
-                x, lb = checkpoint(self._layer, x, layer, cos, sin,
-                                   use_reentrant=False, context_fn=context_fn)
-            else:
-                x, lb = self._layer(x, layer, cos, sin)
+            x, lb = run_layer(x, layer, cos, sin)
             moe_aux = moe_aux + lb
         return self._norm(x, params["final_norm"]), moe_aux
 
@@ -381,13 +417,8 @@ class Transformer(nn.Module):
         `local_map`: `sharded_softmax_cross_entropy` over tp where the
         vocab is split, `softmax_cross_entropy` where it is whole."""
         c = self.config
-        if c.loss_chunk:
-            raise NotImplementedError(
-                "the chunked LM loss under a mesh is not ported")
         b, s = tokens.shape
         x, aux = self.hidden_and_aux(params, tokens)
-        logits = self._constrain(self._mm(x, self._head(params)),
-                                 ("batch", "seq", "vocab"))
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         m = (torch.ones((b, s), dtype=torch.float32, device=tokens.device)
              if mask is None else mask.to(torch.float32))
@@ -402,9 +433,36 @@ class Transformer(nn.Module):
                     lg, lb, "tp", c.vocab_size // tp, mesh=self._dmesh)[1]
             return softmax_cross_entropy(lg, lb)[1]
 
+        rp = logical_placements(self.mesh, ("batch", "seq"), _RULES)
+        if c.loss_chunk:
+            # the chunked CE on each rank's rows: x whole along embed,
+            # the head split over tp along vocab where it is split. The
+            # sum over a rank's rows, and the head's gradient from them,
+            # are partial sums over the row axes; x's gradient from a
+            # vocab shard is a partial sum over tp
+            xp = logical_placements(self.mesh, ("batch", "seq", None),
+                                    _RULES)
+            hp = logical_placements(self.mesh, (None, "vocab"), _RULES)
+
+            def partial_where(split, other):
+                return tuple(Partial() if isinstance(q, Shard) else o
+                             for q, o in zip(split, other))
+            total = local_map(
+                lambda xl, hl, lb, ml: chunked_ce_sum(
+                    xl, hl, lb, ml, c.loss_chunk, per_token),
+                out_placements=list(partial_where(rp, [Replicate()] *
+                                                  len(rp))),
+                in_placements=(xp, hp, rp, rp),
+                in_grad_placements=(partial_where(hp, xp),
+                                    partial_where(rp, hp), rp, rp),
+                device_mesh=self._dmesh,
+                redistribute_inputs=True)(x, self._head(params), labels, m)
+            loss = total / m.sum().clamp_min(1.0)
+            return self._with_moe_term(loss, aux).full_tensor()
+        logits = self._constrain(self._mm(x, self._head(params)),
+                                 ("batch", "seq", "vocab"))
         lp = logical_placements(self.mesh, ("batch", "seq", "vocab"),
                                 _RULES)
-        rp = logical_placements(self.mesh, ("batch", "seq"), _RULES)
         pt = local_map(per_token, out_placements=list(rp),
                        in_placements=(lp, rp),
                        device_mesh=self._dmesh, redistribute_inputs=True)(

@@ -40,10 +40,40 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (per_token * mask).sum() / denom, per_token
 
 
-def _chunk_loss(xc, head, lc, mc):
+def _dense_per_token(logits, labels):
+    return softmax_cross_entropy(logits, labels)[1]
+
+
+def _chunk_loss(xc, head, lc, mc, per_token_fn):
     logits = (xc @ head).to(torch.float32)
-    _, per_token = softmax_cross_entropy(logits, lc)
-    return (per_token * mc).sum()
+    return (per_token_fn(logits, lc) * mc).sum()
+
+
+def chunked_ce_sum(x: torch.Tensor, head: torch.Tensor,
+                   labels: torch.Tensor, mask: torch.Tensor,
+                   chunk_size: int, per_token_fn=_dense_per_token
+                   ) -> torch.Tensor:
+    """The masked SUM of token CE over sequence chunks, each chunk's
+    logits recomputed in the backward. `per_token_fn(logits, labels)`
+    gives a chunk's per-token losses (the vocab-sharded CE on a mesh)."""
+    b, s, _ = x.shape
+    mask = mask.to(torch.float32)
+    if s % chunk_size:
+        pad = chunk_size - s % chunk_size
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+        s += pad
+    total = x.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, chunk_size):
+        sl = slice(c0, c0 + chunk_size)
+        args = (x[:, sl], head, labels[:, sl], mask[:, sl], per_token_fn)
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_loss, *args,
+                                       use_reentrant=False)
+        else:
+            total = total + _chunk_loss(*args)
+    return total
 
 
 def chunked_lm_loss(x: torch.Tensor, head: torch.Tensor,
@@ -62,21 +92,7 @@ def chunked_lm_loss(x: torch.Tensor, head: torch.Tensor,
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
     mask = mask.to(torch.float32)
-    if s % chunk_size:
-        pad = chunk_size - s % chunk_size
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-        labels = torch.nn.functional.pad(labels, (0, pad))
-        mask = torch.nn.functional.pad(mask, (0, pad))
-        s += pad
-    total = x.new_zeros((), dtype=torch.float32)
-    for c0 in range(0, s, chunk_size):
-        sl = slice(c0, c0 + chunk_size)
-        args = (x[:, sl], head, labels[:, sl], mask[:, sl])
-        if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_loss, *args,
-                                       use_reentrant=False)
-        else:
-            total = total + _chunk_loss(*args)
+    total = chunked_ce_sum(x, head, labels, mask, chunk_size)
     return total / mask.sum().clamp_min(1.0)
 
 

@@ -9,7 +9,8 @@ a training loop builds its DeviceMesh with `parallel.prepare_mesh` over
 the process group TorchBackend formed. `topology` (pod-slice placement)
 raises until `util/accelerators` is ported. `ElasticConfig` and
 `PipelineConfig` are copies, so configs validate the same way; `fit`
-runs the elastic path and raises on the pipeline path.
+runs the elastic path, and the MPMD pipeline (train/pipeline.py) with
+`pipeline_stages > 1`.
 """
 from __future__ import annotations
 
@@ -139,16 +140,24 @@ class PipelineConfig:
     set of processes owning its own slice, per "Scaling Deep Learning
     Training with MPMD Pipeline Parallelism" (PAPERS.md).
 
-    init_params: layer-stacked pytree, leaves (L, ...).
+    init_params: layer-stacked tree, leaves (L, ...), or a list of L
+        per-layer trees (the port's Transformer layout).
     stage_fn(stage_params, x, *consts) -> y: applies ONE stage's
-        sub-stack (leaves (L_s, ...), possibly ragged across stages —
-        MPMD stages are independent programs).
+        sub-stack (leaves (L_s, ...) or a list of L_s layers, possibly
+        ragged across stages — MPMD stages are independent programs).
+        It runs on torch tensors on the stage's device.
     loss_fn(y, targets) -> scalar summed microbatch loss (the 1F1B
         contract shared with parallel.pipeline.pipeline_grads_1f1b).
-    batch_fn(step) -> (x, targets): the per-step global batch.
+    batch_fn(step) -> (x, targets): the per-step global batch (numpy
+        arrays or CPU tensors).
     update_fn(params, grads, step) -> params: per-stage optimizer
         applied to that stage's slice with grads already averaged over
-        microbatches; None = SGD with `lr`.
+        microbatches; None = SGD with `lr`. The function is pickled to
+        each stage process, so a stateful optimizer lives in a closure
+        that builds its state on the stage process at the first call
+        (e.g. a `torch.optim.AdamW` over the leaves of `params`, which
+        sets each leaf's `.grad` from `grads`, steps, and returns
+        `params`); each stage gets its own.
     transport: "shm" (same-box rings) | "wire" (cross-host, tensors
         over the Envelope raw zero-copy path) | "auto" (wire for
         cross-host edges only).

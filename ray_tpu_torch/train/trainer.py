@@ -61,9 +61,9 @@ class TorchTrainer:
         self._run_config = run_config or RunConfig()
         self._backend_config = backend_config or TorchConfig()
         self._resume_checkpoint = resume_from_checkpoint
-        # MPMD pipeline mode (r13 in the JAX package): pipeline_stages
-        # > 1 partitions the layer stack across that many stage worker
-        # GROUPS over compiled-DAG channels; not ported yet (fit raises).
+        # MPMD pipeline mode (r13): pipeline_stages > 1 partitions the
+        # layer stack across that many stage worker GROUPS over
+        # compiled-DAG channels (train/pipeline.py).
         # train_loop_per_worker is unused there — the stage program
         # comes from pipeline_config.
         self._pipeline_stages = int(pipeline_stages)
@@ -76,9 +76,8 @@ class TorchTrainer:
     # ------------------------------------------------------------- fit
     def fit(self) -> Result:
         if self._pipeline_stages > 1:
-            raise NotImplementedError(
-                "pipeline_stages > 1 (train/pipeline.py) needs the DAG and "
-                "its channels: ROADMAP queue 1, item 9")
+            from ray_tpu_torch.train.pipeline import fit_pipeline
+            return fit_pipeline(self)
         if self._scaling.elastic is not None:
             from ray_tpu_torch._private.config import CONFIG
             if CONFIG.elastic:

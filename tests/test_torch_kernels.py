@@ -803,3 +803,38 @@ def test_chip_smoke_refuses_without_a_card():
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert "cuda" in out.stderr.lower()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["shm", "wire"])
+def test_a_cuda_tensor_crosses_a_channel_onto_the_readers_card(dev,
+                                                               transport):
+    """A bf16 CUDA tensor written to a channel lands as a CUDA tensor on
+    the reader's current card, bit for bit, on both transports; the
+    slot's next message does not change it (the copy finished before the
+    ack). An f32 CPU tensor stays on the CPU."""
+    from ray_tpu_torch.experimental.channel import Channel
+    from ray_tpu_torch.experimental.wire_channel import serve_channel
+    ch = (Channel.create(capacity=1 << 22, n_readers=1, depth=1)
+          if transport == "shm" else
+          serve_channel(capacity=1 << 22, n_readers=1, depth=1))
+    try:
+        r = ch.reader(0)
+        w = ch.writer()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        sent = torch.randn(1, 256, 2048, generator=gen, device=dev).to(
+            torch.bfloat16)
+        w.write(sent, timeout=30.0)
+        got = r.read(timeout=30.0)
+        assert got.is_cuda and got.device.index == torch.cuda.current_device()
+        assert got.dtype == torch.bfloat16 and torch.equal(got, sent)
+        w.write(torch.zeros_like(sent), timeout=30.0)   # reuses the slot
+        assert torch.equal(got, sent)
+        assert not bool(r.read(timeout=30.0).any())
+        host = torch.arange(10, dtype=torch.float32)
+        w.write(host, timeout=30.0)
+        back = r.read(timeout=30.0)
+        assert back.device.type == "cpu" and torch.equal(back, host)
+        w.close()
+    finally:
+        ch.destroy()

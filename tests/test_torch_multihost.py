@@ -83,18 +83,13 @@ def test_agent_publishes_its_gpus(head):
 
 
 def _hold_the_gil(seconds: float) -> None:
-    """One C call that keeps the GIL about `seconds`: a regex that
-    backtracks (the `re` engine never lets the GIL go), as a multi-GB
-    copy does."""
-    import re
-    pat = re.compile(r"(x+x+)+y")
-    t0 = time.perf_counter()
-    pat.match("x" * 18)
-    unit = max(time.perf_counter() - t0, 1e-4)      # doubles a char
-    n = 18
-    while unit * 2 ** (n - 18) < seconds:
-        n += 1
-    pat.match("x" * n)
+    """One C call that keeps the GIL `seconds` by the wall clock, as a
+    multi-GB copy does: libc's `usleep` called through `ctypes.PyDLL`,
+    which does not release the GIL. (A backtracking regex sized from a
+    timed calibration held it for less than asked when the calibration
+    ran slowed by a loaded host: 1.79 s for 2.5.)"""
+    import ctypes
+    ctypes.PyDLL(None).usleep(int(seconds * 1e6))
 
 
 def test_a_stalled_driver_keeps_its_agents_alive(head, monkeypatch):

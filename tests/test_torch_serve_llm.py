@@ -314,7 +314,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "util.state", "train.elastic", "parallel.mesh",
                  "parallel.sharding", "parallel.collectives",
                  "ops.ring_attention", "ops.sharded", "models.moe",
-                 "dryrun"):
+                 "dryrun", "dag", "util.collective", "util.tracing",
+                 "experimental", "experimental.channel",
+                 "experimental.wire_channel", "experimental.dag_channels",
+                 "parallel.pipeline", "train.pipeline"):
         assert "ray_tpu_torch." + name in modules, name
     imported, modules = run(
         "import sys, pkgutil, importlib\n"

@@ -48,8 +48,7 @@ def test_mesh_specs_cover_all_axes():
         shape = dict(zip(("pp", "dp", "fsdp", "sp", "ep", "tp"),
                          spec.resolve(8)))
         axes_seen |= {a for a, s in shape.items() if s > 1}
-    assert {"dp", "fsdp", "tp", "sp", "ep"} <= axes_seen
-    assert "pp" not in axes_seen            # ROADMAP item 9
+    assert {"dp", "fsdp", "tp", "sp", "pp", "ep"} <= axes_seen
 
 
 def test_scaling_config_takes_a_mesh_spec():
@@ -139,11 +138,12 @@ def _sharded_ce(logits, labels, shard):
 
 
 @pytest.mark.parametrize("axes", [dict(fsdp=2), dict(tp=2), dict(sp=2),
-                                  dict(ep=2)],
-                         ids=["fsdp", "tp", "sp", "ep"])
+                                  dict(ep=2), dict(pp=2)],
+                         ids=["fsdp", "tp", "sp", "ep", "pp"])
 def test_dryrun_two_rank_sibling(ranks, axes):
     """Three AdamW steps of the dry run's model on a 2-rank mesh with one
-    parallel axis (ring attention on sp, the MoE model on ep) against one
+    parallel axis (ring attention on sp, the MoE model on ep, the GPipe
+    schedule with 2 microbatches on pp) against one
     process, at the JAX function's tolerances: loss 2e-3, grad norm 5e-3,
     relative (`dryrun.check_spec` raises past them)."""
     res = ranks.run(2, dryrun.check_spec, MeshSpec(**axes))
@@ -164,17 +164,85 @@ def test_dryrun_multichip_8():
 
 
 def _pipeline_mesh_refused():
+    import dataclasses
+
     from ray_tpu_torch.models.config import tiny
     from ray_tpu_torch.models.transformer import Transformer
     from ray_tpu_torch.parallel import prepare_mesh
     mesh = prepare_mesh(MeshSpec(pp=2, dp=1), device="cpu")
-    try:
-        Transformer(tiny(), mesh=mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+    cfg = dataclasses.replace(tiny(), pipeline_microbatches=2,
+                              moe_num_experts=2, moe_top_k=1)
+    model = Transformer(cfg, mesh=mesh)      # a pp mesh is taken now
+    tokens = torch.zeros((2, 8), dtype=torch.long)
+    msgs = []
+    for positions in (None, torch.arange(8).expand(2, 8)):
+        try:
+            model.hidden({"embed": torch.zeros(cfg.vocab_size, 64)},
+                         tokens, positions)
+        except NotImplementedError as e:
+            msgs.append(str(e))
+        model = Transformer(dataclasses.replace(cfg, moe_num_experts=0),
+                            mesh=mesh)
+    return msgs
 
 
 def test_a_pipeline_mesh_is_refused_naming_its_item(ranks):
-    for msg in ranks.run(2, _pipeline_mesh_refused):
-        assert msg is not None and "item 9" in msg
+    """A Transformer takes a pp mesh since the pipeline was ported
+    (ROADMAP queue 1, item 9); it refuses what the JAX model refuses
+    there, each with the JAX message: an MoE model with pipeline
+    microbatches, and custom positions
+    (`ray_tpu/models/transformer.py:261-291`)."""
+    for msgs in ranks.run(2, _pipeline_mesh_refused):
+        assert len(msgs) == 2
+        assert "MoE + pipeline" in msgs[0]
+        assert "default positions" in msgs[1]
+
+
+def _chunked_mesh_loss(jtree, tokens, spec):
+    from ray_tpu_torch.models.config import tiny
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.models.transformer import Transformer
+    from ray_tpu_torch.parallel import (param_shardings, prepare_mesh,
+                                        shard_pytree)
+    from ray_tpu_torch.parallel.sharding import sync_grads, tree_map
+    cfg = dataclasses.replace(tiny(), loss_chunk=16)
+    mesh = prepare_mesh(MeshSpec(**spec), device="cpu")
+    model = Transformer(cfg, mesh=mesh)
+    params = shard_pytree(params_from_jax(jtree, cfg, "cpu"),
+                          param_shardings(mesh, model.param_logical_axes()))
+    tree_map(lambda p: p.requires_grad_(True), params)
+    loss = model.loss(params, {"tokens": torch.as_tensor(tokens)})
+    loss.backward()
+    sync_grads(params)
+    g = tree_map(lambda p: p.grad.full_tensor().numpy(), params)
+    layers = {k: np.stack([lay[k] for lay in g["layers"]])
+              for k in g["layers"][0]}
+    return float(loss.detach()), dict(g, layers=layers)
+
+
+@pytest.mark.parametrize("spec", [dict(dp=2), dict(tp=2)],
+                         ids=["dp", "tp"])
+def test_chunked_loss_on_a_mesh_matches_the_jax_loss(ranks, spec):
+    """`Transformer.loss` with `loss_chunk=16` on a 2-rank mesh (ROADMAP
+    queue 3, item 18: it raised): the chunked CE runs on each rank's rows
+    inside `local_map`, over the vocab split on tp. Held to the JAX
+    model's chunked loss at tiny() with the same weights
+    (`params_from_jax`): loss 1e-5 relative, grads 1e-4 relative / 1e-5
+    absolute."""
+    from ray_tpu.models import Transformer as JTransformer
+    from ray_tpu.models.config import tiny as jtiny
+    jcfg = dataclasses.replace(jtiny(), loss_chunk=16)
+    jmodel = JTransformer(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(7).integers(0, jcfg.vocab_size, (4, 32))
+    j_loss, j_grads = jax.jit(jax.value_and_grad(jmodel.loss))(
+        jparams, {"tokens": jnp.asarray(tokens, jnp.int32)})
+    jtree = jax.tree_util.tree_map(np.asarray, jparams)
+    for loss, grads in ranks.run(2, _chunked_mesh_loss, jtree, tokens, spec):
+        np.testing.assert_allclose(loss, float(j_loss), rtol=1e-5)
+        for path, ref in jax.tree_util.tree_leaves_with_path(j_grads):
+            got = grads
+            for key in path:
+                got = got[key.key]
+            np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-4,
+                                       atol=1e-5, err_msg=str(path))

@@ -39,7 +39,10 @@ def _free_port() -> int:
 class RankPool:
     def __init__(self, size: int, timeout: float = 60.0):
         self.size, self.timeout = size, timeout
-        self._listener = Listener(("127.0.0.1", 0), authkey=_AUTH)
+        # a backlog for every rank: they all dial at once, and a dropped
+        # SYN backs off for seconds (the default backlog is 1)
+        self._listener = Listener(("127.0.0.1", 0), authkey=_AUTH,
+                                  backlog=max(8, size))
         self._start()
 
     def _start(self):
