@@ -50,7 +50,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      `LLMHandle.generate` and their TokenStreams, which must give
      phase 5's EngineCore tokens exactly, with the flash forward and
      RMSNorm launched in the replica; after `serve.shutdown()` the
-     card's memory is back;
+     card's memory is back; then the same with the replica on a node
+     agent's card: a head with no GPU, node agent A (a
+     `ray_tpu_torch._private.node_agent` process owning the card's
+     `GPU: 1`), the weights `put` on the head and relayed by the object
+     plane into A's store when the replica, which must run on A's node,
+     gets them (/dev/shm must hold both copies); the same tokens and
+     launches, the relay's bytes and GB/s, TTFT and TPOT;
   8. train: the model of the repo's `bench.py` (~0.95 B params, bf16,
      seq 2048, batch 2) at full width and depth through
      `ray_tpu_torch.bench.train_step` (loss, backward, AdamW): 2 warm-up
@@ -2691,6 +2697,83 @@ def consume_streams(streams: dict, deadline_s: float) -> tuple:
     return tokens, stamps
 
 
+def await_replica(handle, ctx, rt_serve, timeout: float = 300.0) -> list:
+    """The replicas' `engine_stats()` once one answers; raises, naming
+    the deployment's status and the actors' states, after `timeout` s."""
+    deadline = time.monotonic() + timeout
+    while not (stats := handle.stats()):
+        if time.monotonic() > deadline:
+            actors = [(a["state"], a["num_restarts"], a["death_cause"])
+                      for a in ctx.state_op("list_actors")]
+            raise AssertionError(f"the replica did not answer in "
+                                 f"{timeout:.0f} s: {rt_serve.status()}, "
+                                 f"actors {actors}")
+        time.sleep(0.2)
+    if len(stats) != 1:
+        raise AssertionError(f"{len(stats)} replicas answered, not 1")
+    return stats
+
+
+def drive_replica(handle, cfg, served: dict, what: str) -> dict:
+    """A warm-up (the replica's first cuBLAS calls and the stream's first
+    connection), then `serve()`'s five requests through
+    `LLMHandle.generate`, each TokenStream consumed on its own thread. The
+    tokens must equal `serve()`'s EngineCore tokens exactly, the flash
+    forward must have launched once a layer a prefill in the replica and
+    RMSNorm there too. Returns the launches (differences of the
+    replica's counts around the requests), TTFT and TPOT p50 and the
+    replica's peak."""
+    lens, new_tokens, prompts = serve_requests(cfg)
+    warm = handle.generate(prompts["r0"], max_tokens=2, timeout_s=120)
+    if len(warm.tokens()) != 2:
+        raise AssertionError("warm-up request")
+    before = handle.stats()[0]["kernel_launches"]
+    submitted = {}
+    streams = {}
+    for rid in prompts:
+        submitted[rid] = time.perf_counter()
+        streams[rid] = handle.generate(prompts[rid],
+                                       max_tokens=new_tokens[rid],
+                                       timeout_s=120)
+    tokens, stamps = consume_streams(streams, 300.0)
+    after = handle.stats()[0]
+    launches = {k: after["kernel_launches"][k] - before[k] for k in before}
+    if tokens != served["tokens"]:
+        raise AssertionError(f"{what} tokens {tokens} differ from "
+                             f"EngineCore's {served['tokens']}")
+    if launches["flash_fwd"] != cfg.n_layers * len(prompts):
+        raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} "
+                             f"times in the {what} replica, expected a "
+                             f"layer a prefill")
+    if launches["rms_norm"] <= 0:
+        raise AssertionError(f"rms_norm never launched in the {what} "
+                             f"replica")
+    ttft = [stamps[rid][0] - submitted[rid] for rid in prompts]
+    tpot = [b - a for rid in prompts
+            for a, b in zip(stamps[rid], stamps[rid][1:])]
+    return {"launches": {"flash_fwd": launches["flash_fwd"],
+                         "flash_dkdv": 0, "flash_dq": 0,
+                         "rms_norm": launches["rms_norm"]},
+            "ttft_ms_p50": statistics.median(ttft) * 1e3,
+            "tpot_ms_p50": statistics.median(tpot) * 1e3,
+            "generated_tokens": sum(map(len, tokens.values())),
+            "replica_peak_gib": after.get("device_peak_bytes", 0) / 2 ** 30}
+
+
+def memory_back(free0: int) -> float:
+    """GiB of the card not back (against `free0` free bytes) after up to
+    60 s; raises over 1 GiB."""
+    deadline = time.monotonic() + 60
+    while (torch.cuda.mem_get_info()[0] < free0 - 2 ** 30
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    held = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 30
+    if held > 1.0:
+        raise AssertionError(f"{held:.2f} GiB of the card not back after "
+                             f"shutdown")
+    return held
+
+
 def serve_llm_phase(served: dict, dev) -> dict:
     """llama3-8b through `serve_llm`, the user's entry point to LLM
     serving: the weights from seed 0, made on the card and `put` in the
@@ -2733,7 +2816,6 @@ def serve_llm_phase(served: dict, dev) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        lens, new_tokens, prompts = serve_requests(cfg)
         t0 = time.perf_counter()
         handle = serve_llm(
             name="llama3-8b", model=cfg, weights=ref, num_replicas=1,
@@ -2741,74 +2823,184 @@ def serve_llm_phase(served: dict, dev) -> dict:
             ray_actor_options={"num_gpus": 1} if on_card else {},
             device=None if on_card else "cpu")
         out["serve_llm_s"] = time.perf_counter() - t0
-        deadline = time.monotonic() + 300
-        while not (stats := handle.stats()):
-            if time.monotonic() > deadline:
-                actors = [(a["state"], a["num_restarts"], a["death_cause"])
-                          for a in context.get_ctx().state_op("list_actors")]
-                raise AssertionError(f"the replica did not answer in 300 s: "
-                                     f"{rt_serve.status()}, actors {actors}")
-            time.sleep(0.2)
+        stats = await_replica(handle, context.get_ctx(), rt_serve)
         out["replica_first_answer_s"] = time.perf_counter() - t0
-        if len(stats) != 1:
-            raise AssertionError(f"{len(stats)} replicas answered, not 1")
         out["replica_weights_s"] = stats[0]["weights_s"]
-        # warm-up outside the counted run: the replica's first cuBLAS
-        # calls and the stream's first connection
-        warm = handle.generate(prompts["r0"], max_tokens=2, timeout_s=120)
-        if len(warm.tokens()) != 2:
-            raise AssertionError("warm-up request")
-        before = handle.stats()[0]["kernel_launches"]
-        submitted = {}
-        streams = {}
-        for rid in prompts:
-            submitted[rid] = time.perf_counter()
-            streams[rid] = handle.generate(prompts[rid],
-                                           max_tokens=new_tokens[rid],
-                                           timeout_s=120)
-        tokens, stamps = consume_streams(streams, 300.0)
-        after = handle.stats()[0]
-        launches = {k: after["kernel_launches"][k] - before[k]
-                    for k in before}
-        out["launches"] = {"flash_fwd": launches["flash_fwd"],
-                           "flash_dkdv": 0, "flash_dq": 0,
-                           "rms_norm": launches["rms_norm"]}
-        if tokens != served["tokens"]:
-            raise AssertionError(f"serve_llm tokens {tokens} differ from "
-                                 f"EngineCore's {served['tokens']}")
-        if launches["flash_fwd"] != cfg.n_layers * len(prompts):
-            raise AssertionError(f"flash_fwd launched "
-                                 f"{launches['flash_fwd']} times in the "
-                                 f"replica, expected a layer a prefill")
-        if launches["rms_norm"] <= 0:
-            raise AssertionError("rms_norm never launched in the replica")
-        ttft = [stamps[rid][0] - submitted[rid] for rid in prompts]
-        tpot = [b - a for rid in prompts
-                for a, b in zip(stamps[rid], stamps[rid][1:])]
-        out.update(ttft_ms_p50=statistics.median(ttft) * 1e3,
-                   tpot_ms_p50=statistics.median(tpot) * 1e3,
-                   generated_tokens=sum(map(len, tokens.values())),
-                   replica_peak_gib=after.get("device_peak_bytes", 0)
-                   / 2 ** 30)
+        out.update(drive_replica(handle, cfg, served, "serve_llm"))
         del ref
     finally:
         try:
             rt_serve.shutdown()
         finally:
             ray_tpu_torch.shutdown()
-    deadline = time.monotonic() + 60
-    while (torch.cuda.mem_get_info()[0] < free0 - 2 ** 30
-           and time.monotonic() < deadline):
-        time.sleep(0.5)
-    out["not_returned_gib"] = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 30
-    if out["not_returned_gib"] > 1.0:
-        raise AssertionError(f"{out['not_returned_gib']:.2f} GiB of the card "
-                             f"not back after shutdown")
+    out["not_returned_gib"] = memory_back(free0)
     log(f"serve_llm: put {out['put_s']:.2f} s ({out['shm_segments']} shm "
         f"segments), replica answers {out['replica_first_answer_s']:.2f} s "
         f"after serve_llm (weights {out['replica_weights_s']:.2f} s there), "
         f"TTFT p50 {out['ttft_ms_p50']:.1f} ms, TPOT p50 "
         f"{out['tpot_ms_p50']:.2f} ms")
+    return out
+
+
+# host room the agent phase needs beyond its two copies of the weights in
+# /dev/shm (the head's store and agent A's): the processes' own memory
+AGENT_HOST_SLACK = 8 * 2 ** 30
+
+
+def host_room() -> dict:
+    """/dev/shm's free bytes and the kernel's MemAvailable (bytes)."""
+    st = os.statvfs("/dev/shm")
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    return {"shm_free_bytes": st.f_bavail * st.f_frsize,
+            "mem_available_bytes": avail}
+
+
+def actor_nodes(ctx) -> dict:
+    """Each live actor's (name, node id), by actor id, from the head's
+    own books: the actor's worker, and the node that worker runs on."""
+    where = {w["worker_id"]: w["node_id"]
+             for w in ctx.state_op("list_workers")}
+    return {a["actor_id"]: (a["name"], where.get(a["worker_id"]))
+            for a in ctx.state_op("list_actors") if a["state"] == "ALIVE"}
+
+
+class BytesSampler:
+    """Samples this process's `OBJECT_PLANE_STATS["serve_bytes"]` every
+    `poll` s on a thread: the window in which the head served bytes is
+    the relay's (first rise to last)."""
+
+    def __init__(self, stats: dict, poll: float = 0.05):
+        self._stats, self._poll = stats, poll
+        self.start_bytes = self._seen = stats["serve_bytes"]
+        self.first = self.last = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _sample(self) -> None:
+        now, t = self._stats["serve_bytes"], time.perf_counter()
+        if now != self._seen:
+            self.first = self.first or t - self._poll
+            self.last, self._seen = t, now
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._poll):
+            self._sample()
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(5)
+        self._sample()
+        served = self._stats["serve_bytes"] - self.start_bytes
+        span = (self.last - self.first) if self.first else None
+        return {"served_bytes": served, "relay_s": span,
+                "relay_gb_s": served / span / 1e9 if span else None}
+
+
+def serve_llm_agent_phase(served: dict, dev) -> dict:
+    """llama3-8b through `serve_llm` with its replica on a node agent's
+    card: the head owns no GPU (`init(num_cpus=4, num_gpus=0)`), agent A
+    (a node agent process) owns the card's `GPU: 1`, the weights from
+    seed 0 are made on the card and `put` on the head, and the replica
+    (`num_gpus=1`) must run on A's node, so its `get` relays the 16.06 GB
+    ref from the head's store into A's over the object plane. `serve()`'s
+    five requests through `LLMHandle.generate` must give its EngineCore
+    tokens exactly, with the flash forward and RMSNorm launched in the
+    replica; after `serve.shutdown()` and `shutdown()` the card's memory
+    is back within 1 GiB. The ref lives in two stores on one host, so the
+    phase raises if /dev/shm or the host's memory lacks room for both.
+    `dev` is the card; the CPU only rehearses (the replica is kept off
+    the head by a custom `agent` resource instead of `GPU`)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rt_serve
+    from ray_tpu_torch._private import context
+    from ray_tpu_torch._private.object_transfer import OBJECT_PLANE_STATS
+    from ray_tpu_torch.serve import _CONTROLLER_NAME
+    from ray_tpu_torch.serve.llm import serve_llm
+    on_card = dev.type == "cuda"
+    cfg = llama3_8b()
+    room = host_room()
+    log(f"serve_llm agent: /dev/shm free {room['shm_free_bytes']} B, "
+        f"MemAvailable {room['mem_available_bytes']} B")
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    out = {"host_room": room}
+    phase_t0 = time.perf_counter()
+    rt = ray_tpu_torch.init(num_cpus=4, num_gpus=0)
+    agent = None
+    try:
+        if ray_tpu_torch.cluster_resources().get("GPU", 0) != 0:
+            raise AssertionError("the head node holds a GPU")
+        only_agent = None if on_card else {"agent": 1.0}
+        agent, out["agent_start_s"] = start_agent(
+            rt, num_gpus=1 if on_card else 0, resources=only_agent)
+        params = init_for_serving(Transformer(cfg), seed=0, device=dev)
+        sizes = [t.numel() * t.element_size() for t in bench.leaves(params)]
+        out["weights_bytes"] = weights = sum(sizes)
+        need = 2 * weights + AGENT_HOST_SLACK
+        if min(room.values()) < need:
+            raise AssertionError(
+                f"the weights' two copies need {need} B of host memory and "
+                f"/dev/shm: {room}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(params)
+        out["put_s"] = time.perf_counter() - t0
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ctx = context.get_ctx()
+        before = set(actor_nodes(ctx))
+        sampler = BytesSampler(OBJECT_PLANE_STATS)
+        t0 = time.perf_counter()
+        handle = serve_llm(
+            name="llama3-8b-agent", model=cfg, weights=ref, num_replicas=1,
+            num_pages=1024, page_size=16, max_batch=DECODE_ROWS,
+            ray_actor_options=({"num_gpus": 1} if on_card
+                               else {"resources": only_agent}),
+            device=None if on_card else "cpu")
+        out["serve_llm_s"] = time.perf_counter() - t0
+        stats = await_replica(handle, ctx, rt_serve)
+        out["replica_first_answer_s"] = time.perf_counter() - t0
+        out["relay"] = sampler.stop()
+        out["replica_weights_s"] = stats[0]["weights_s"]
+        replicas = [node for aid, (name, node) in actor_nodes(ctx).items()
+                    if aid not in before and name != _CONTROLLER_NAME]
+        if replicas != [agent.node_id]:
+            raise AssertionError(f"replica nodes {replicas}, not agent A's "
+                                 f"{agent.node_id}")
+        out["replica_node"], out["head_node"] = replicas[0], rt.head_node_id
+        if out["relay"]["served_bytes"] < weights:
+            raise AssertionError(f"the head served {out['relay']} over the "
+                                 f"object plane, less than the weights' "
+                                 f"{weights} B")
+        out.update(drive_replica(handle, cfg, served, "agent's"))
+        out["served_bytes_phase"] = (OBJECT_PLANE_STATS["serve_bytes"]
+                                     - sampler.start_bytes)
+        del ref
+    finally:
+        try:
+            rt_serve.shutdown()
+        finally:
+            try:
+                if agent is not None:
+                    agent.terminate()
+                    agent.wait(30)
+            finally:
+                ray_tpu_torch.shutdown()
+    out["not_returned_gib"] = memory_back(free0)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    relay = out["relay"]
+    log(f"serve_llm agent: agent {out['agent_start_s']:.2f} s, put "
+        f"{out['put_s']:.2f} s, replica on {out['replica_node']} answers "
+        f"{out['replica_first_answer_s']:.2f} s after serve_llm (weights "
+        f"{out['replica_weights_s']:.2f} s there), relay "
+        f"{relay['served_bytes']} B in {relay['relay_s']} s "
+        f"({relay['relay_gb_s']} GB/s), TTFT p50 {out['ttft_ms_p50']:.1f} "
+        f"ms, TPOT p50 {out['tpot_ms_p50']:.2f} ms")
     return out
 
 
@@ -3286,6 +3478,8 @@ def main() -> None:
     log("runtime: " + json.dumps(ran))
     llm_served = serve_llm_phase(served, dev)
     log("serve_llm: " + json.dumps(llm_served))
+    agent_served = serve_llm_agent_phase(served, dev)
+    log("serve_llm agent: " + json.dumps(agent_served))
     trained = train(dev, peaks)
     log("train: " + json.dumps(trained))
     gc.collect()
@@ -3309,6 +3503,7 @@ def main() -> None:
              "llm_engine": served["llm_engine"]["launches"],
              "actor_engine_core": ran["actor"]["launches"],
              "serve_llm_replica": llm_served["launches"],
+             "serve_llm_agent_replica": agent_served["launches"],
              "train_20_steps": trained["launches"],
              "train_remat_full_step":
                  trained["remat_steps"]["launches"]["full"],

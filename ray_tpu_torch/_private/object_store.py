@@ -532,6 +532,12 @@ def bytes_out_of_band(value: Any, limit: int) -> Any:
         return walk(value)
     except (_Cycle, RecursionError):
         return value
+    finally:
+        # `walk` holds itself through its closure: a cycle that kept the
+        # memo, and every ObjectRef in `value`, alive until the cyclic GC
+        # ran, so a dropped ref's object outlived it (ROADMAP queue 3,
+        # item 19)
+        del walk
 
 
 def _pickle(value: Any) -> tuple:

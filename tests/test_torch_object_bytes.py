@@ -151,6 +151,32 @@ def test_serialize_carries_nested_bytes_out_of_band():
     assert osm.bytes_out_of_band(small, 1 << 10) is small
 
 
+@pytest.mark.parametrize("big", [False, True])
+def test_the_walk_keeps_nothing_alive(big):
+    """What `bytes_out_of_band` walked dies with its last reference, with
+    the cyclic GC off: its memo once lived in a cycle until the GC ran,
+    and with it every ObjectRef a task's argument list held (ROADMAP
+    queue 3, item 19)."""
+    import gc
+    import weakref
+
+    class Item:
+        pass
+
+    item = Item()
+    alive = weakref.ref(item)
+    value = {"a": [item, b"x" * (2048 if big else 16)], "b": (item,)}
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        osm.bytes_out_of_band(value, 1 << 10)
+        del value, item
+        assert alive() is None
+    finally:
+        if was:
+            gc.enable()
+
+
 def test_put_of_nested_bytes_over_the_frame_limit(small_frames):
     value = _nested()
     ref = ray_tpu_torch.put(value)
