@@ -115,12 +115,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
      0, exact launch counts a step read in each stage worker (32 / 16 /
      16 / 64 on stage 0, 16 / 16 / 16 / 34 on stage 1), the bubble
      fraction from the stage spans, each stage's peak memory; after
-     `shutdown()` the card's memory is back.
+     `shutdown()` the card's memory is back;
+ 13. rl: `ray_tpu_torch.rllib` with CartPole-v1 written here in numpy
+     (`CartPoleVec`, gymnasium's dynamics, seeding and autoreset; the
+     chip machine has no gymnasium) and handed to the env runners as a
+     callable: (a) a PPO learner on the card against one on the CPU,
+     one update each on a toy batch and on a 64 × 32 CartPole batch,
+     every metric and parameter within stated tolerances, TF32 off,
+     the learner's state on the card; (b) the PPO CartPole gate of
+     `tests/test_rllib.py` (PPOConfig defaults, seed 0, a mean return
+     of 450 within 250 iterations) with the learner on the card, and
+     its update timed on the card and on the CPU; (c) PPO through the
+     runtime: two CPU runner actors and a learner actor holding
+     `GPU: 1`, 20 iterations, the runners' weights equal to the
+     learner's after every sync (checksums), a rising return, the
+     card's memory back after `stop()`; (d) `ConvActorCriticModule` at
+     its defaults (84 × 84 × 4 uint8, the Atari conv stack) through
+     `PPOLearner(module=...)`: one update on the card against one on
+     the CPU in float64, the float32 forward card against CPU, then its
+     update ms and peak at T 64 × N 32; (e) `MultiAgentPPO`, two policies on two numpy
+     CartPoles, both learners on the card, finite returns. No kernel
+     of the port lies on this path (the JAX RL stack is plain XLA).
 The last three lines are the card (`nvidia-smi`), the kernels as JSON,
 and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -3415,6 +3436,685 @@ def pipeline_phase(trained: dict, dev, smi: str, cfg=None,
     return out
 
 
+# ---------------------------------------------------------------------
+# Phase 13: RL. The chip machine has no gymnasium, so CartPole-v1 is
+# written here in numpy and handed to the env runners as a callable.
+# ---------------------------------------------------------------------
+# Tolerances, set from the arithmetic before any run:
+#  * a learner on the card against one on the CPU (f32, TF32 off, the
+#    same weights, batch and permutations): matmuls, convs and sums
+#    accumulate in other orders, a few f32 ulps a step; over the 32
+#    Adam steps of an update a parameter moves by at most lr (3e-4) a
+#    step, scaled by m / sqrt(v), so rounding differences stay orders
+#    below 1e-5 where the loss is smooth in the parameters (the tanh
+#    MLP; the conv module in float64, whose ReLU inputs do not round
+#    across 0); a metric within 1e-4 of (1 + |m|), as the JAX dp case
+#    holds its metrics.
+#  * the conv module's logits and values, card against CPU (f32, TF32
+#    off): each is ~5 dot products deep, the longest of 3,136 terms;
+#    their rounding is ~1e-6 of outputs of order 1.
+TOL.update({"rl_metric_rel": 1e-4, "rl_param_abs": 1e-5,
+            "rl_forward_abs": 1e-5})
+RL_GATE_RETURN, RL_GATE_ITERS = 450.0, 250    # tests/test_rllib.py:368
+RL_RUNTIME_ITERS, RL_MA_ITERS = 20, 5
+
+
+class Discrete:
+    """gymnasium.spaces.Discrete's `n`, all the runners read."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+
+class Box:
+    """gymnasium.spaces.Box's `low`, `high` and `shape`."""
+
+    def __init__(self, low, high):
+        self.low = np.asarray(low, np.float32)
+        self.high = np.asarray(high, np.float32)
+        self.shape = self.low.shape
+
+
+class CartPoleVec:
+    """CartPole-v1 as a vector env in numpy, with gymnasium's vector API.
+
+    Gymnasium's dynamics (`envs/classic_control/cartpole.py`: Euler
+    steps of 0.02 s, ±10 N, termination at |x| > 2.4 or |θ| > 12°), its
+    500-step truncation, its seeding (env i of `reset(seed=s)` draws from
+    `Generator(PCG64(SeedSequence(s + i)))`, the state from
+    `uniform(-0.05, 0.05, 4)`) and its next-step autoreset: the step
+    after an episode ends resets that env, with reward 0 and neither
+    flag set."""
+
+    gravity, masscart, masspole = 9.8, 1.0, 0.1
+    total_mass = masspole + masscart
+    length = 0.5
+    polemass_length = masspole * length
+    force_mag, tau = 10.0, 0.02
+    theta_threshold = 12 * 2 * np.pi / 360
+    x_threshold = 2.4
+    max_episode_steps = 500
+
+    def __init__(self, num_envs: int):
+        self.num_envs = num_envs
+        high = np.array([self.x_threshold * 2, np.inf,
+                         self.theta_threshold * 2, np.inf], np.float32)
+        self.single_observation_space = Box(-high, high)
+        self.single_action_space = Discrete(2)
+        self._rngs = [np.random.default_rng() for _ in range(num_envs)]
+        self.state = np.zeros((num_envs, 4))
+        self.steps = np.zeros(num_envs, np.int64)
+        self._autoreset = np.zeros(num_envs, bool)
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rngs = [np.random.Generator(np.random.PCG64(
+                np.random.SeedSequence(seed + i)))
+                for i in range(self.num_envs)]
+        self.state = np.stack([r.uniform(-0.05, 0.05, 4)
+                               for r in self._rngs])
+        self.steps[:] = 0
+        self._autoreset[:] = False
+        return self.state.astype(np.float32), {}
+
+    def step(self, actions):
+        x, x_dot, theta, theta_dot = self.state.T
+        force = np.where(np.asarray(actions) == 1, self.force_mag,
+                         -self.force_mag)
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        temp = (force + self.polemass_length * np.square(theta_dot)
+                * sintheta) / self.total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole
+                           * np.square(costheta) / self.total_mass))
+        xacc = temp - self.polemass_length * thetaacc * costheta \
+            / self.total_mass
+        state = np.stack([x + self.tau * x_dot, x_dot + self.tau * xacc,
+                          theta + self.tau * theta_dot,
+                          theta_dot + self.tau * thetaacc], axis=1)
+        terminated = ((state[:, 0] < -self.x_threshold)
+                      | (state[:, 0] > self.x_threshold)
+                      | (state[:, 2] < -self.theta_threshold)
+                      | (state[:, 2] > self.theta_threshold))
+        self.steps += 1
+        truncated = self.steps >= self.max_episode_steps
+        reward = np.ones(self.num_envs)
+        for i in np.nonzero(self._autoreset)[0]:
+            state[i] = self._rngs[i].uniform(-0.05, 0.05, 4)
+        reset = self._autoreset
+        self.steps[reset] = 0
+        terminated[reset] = truncated[reset] = False
+        reward[reset] = 0.0
+        self.state = state
+        self._autoreset = terminated | truncated
+        return state.astype(np.float32), reward, terminated, truncated, {}
+
+    def close(self) -> None:
+        pass
+
+
+def cartpole_envs(num_envs: int) -> CartPoleVec:
+    """The env callable of `EnvRunnerConfig.env` (a module-level function
+    of `this_module()`, so it pickles by reference to runner actors)."""
+    return CartPoleVec(num_envs)
+
+
+class TwoCartPoles:
+    """Two independent numpy CartPoles as one 2-agent env (the JAX
+    test's `_TwoCartPoles`, tests/test_rllib.py:575, without gymnasium)."""
+
+    agents = ("a0", "a1")
+
+    def __init__(self):
+        self._envs = {a: CartPoleVec(1) for a in self.agents}
+        self._done = {a: False for a in self.agents}
+
+    def reset(self, *, seed=None):
+        obs = {}
+        for i, a in enumerate(self.agents):
+            o, _ = self._envs[a].reset(
+                seed=None if seed is None else seed + i)
+            obs[a] = o[0]
+            self._done[a] = False
+        return obs, {}
+
+    def step(self, actions):
+        obs, rew, term, trunc = {}, {}, {}, {}
+        for a in self.agents:
+            if self._done[a]:
+                obs[a] = np.zeros(4, np.float32)
+                rew[a], term[a], trunc[a] = 0.0, True, False
+                continue
+            o, r, te, tr, _ = self._envs[a].step(np.array([actions[a]]))
+            obs[a], rew[a] = o[0], float(r[0])
+            term[a], trunc[a] = bool(te[0]), bool(tr[0])
+            if te[0] or tr[0]:
+                self._done[a] = True
+        term["__all__"] = all(self._done.values())
+        trunc["__all__"] = False
+        return obs, rew, term, trunc, {}
+
+    def close(self) -> None:
+        pass
+
+
+def rl_toy_batch(T=16, N=8, D=4, A=2, seed=0) -> dict:
+    """tests/test_rllib.py's `_toy_batch`."""
+    rng = np.random.default_rng(seed)
+    return {
+        "obs": rng.normal(size=(T + 1, N, D)).astype(np.float32),
+        "actions": rng.integers(0, A, (T, N)).astype(np.int32),
+        "logp": np.log(np.full((T, N), 1.0 / A, np.float32)),
+        "rewards": rng.normal(size=(T, N)).astype(np.float32),
+        "terminateds": np.zeros((T, N), np.float32),
+        "dones": np.zeros((T, N), np.float32),
+        "mask": np.ones((T, N), np.float32),
+    }
+
+
+def rl_pixel_batch(T: int, N: int, obs_shape=(84, 84, 4), A: int = 6,
+                   seed: int = 0) -> dict:
+    """A seeded uint8 pixel batch with masked filler steps after dones."""
+    rng = np.random.default_rng(seed)
+    dones = (rng.random((T, N)) < 0.05).astype(np.float32)
+    mask = np.ones((T, N), np.float32)
+    mask[1:] = 1.0 - dones[:-1]
+    return {
+        "obs": rng.integers(0, 256, (T + 1, N) + tuple(obs_shape),
+                            dtype=np.uint8),
+        "actions": rng.integers(0, A, (T, N)).astype(np.int32),
+        "logp": np.log(np.full((T, N), 1.0 / A, np.float32)),
+        "rewards": rng.normal(size=(T, N)).astype(np.float32),
+        "terminateds": dones.copy(),
+        "dones": dones,
+        "mask": mask,
+    }
+
+
+def rl_pair(dev, cfg, module_fn=None) -> tuple:
+    """A learner on the card and one on the CPU from the same config:
+    both draw their weights on the CPU from `cfg.seed`."""
+    from ray_tpu_torch.rllib.core.learner import PPOLearner
+    learners = []
+    for d in (dev, torch.device("cpu")):
+        c = dataclasses.replace(cfg, device=str(d))
+        learners.append(PPOLearner(c, module=module_fn() if module_fn
+                                   else None))
+    return tuple(learners)
+
+
+def rl_on_device(learner, dev) -> None:
+    """Every parameter and optimizer state tensor on `dev`'s type."""
+    tensors = list(learner.module.parameters())
+    for st in learner._opt.state.values():
+        tensors += [v for k, v in st.items() if k != "step"]
+    where = {t.device.type for t in tensors}
+    if where != {dev.type}:
+        raise AssertionError(f"learner state on {where}, not {dev.type}")
+
+
+_RL_CONV_MODES = ("deterministic", "default", "no_cudnn")
+
+
+@contextlib.contextmanager
+def rl_f32(conv: str = "deterministic"):
+    """The card's numerics for a comparison with the CPU: TF32 off and,
+    by `conv`, cuDNN held to its deterministic algorithms
+    ("deterministic"), left to its heuristics ("default"), or bypassed
+    for the native im2col + GEMM convolution ("no_cudnn")."""
+    if conv not in _RL_CONV_MODES:
+        raise ValueError(f"conv mode {conv!r} not in {_RL_CONV_MODES}")
+    b = torch.backends
+    saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+             b.cudnn.deterministic, b.cudnn.benchmark, b.cudnn.enabled)
+    b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+    b.cudnn.deterministic = conv == "deterministic"
+    b.cudnn.benchmark = False
+    b.cudnn.enabled = conv != "no_cudnn"
+    try:
+        yield
+    finally:
+        (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.deterministic,
+         b.cudnn.benchmark, b.cudnn.enabled) = saved
+
+
+def rl_as(batch: dict, dtype) -> dict:
+    """`batch` with its float arrays in `dtype` (integer ones kept)."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    return {k: v.astype(np_dtype) if np.issubdtype(v.dtype, np.floating)
+            else v for k, v in batch.items()}
+
+
+def rl_conv_module(dtype=torch.float32):
+    """`rl_phase` (d)'s module: ConvActorCriticModule at its defaults, its
+    parameters in `dtype`."""
+    from ray_tpu_torch.rllib.core.rl_module import ConvActorCriticModule
+    return ConvActorCriticModule((84, 84, 4), 6).to(dtype)
+
+
+def rl_diff(card, cpu, batch, conv: str = "deterministic") -> tuple:
+    """One update on both learners under `rl_f32(conv)`: the CPU's
+    metrics, each metric's error relative to 1 + |m|, each parameter's
+    largest absolute error."""
+    with rl_f32(conv):
+        m_card, m_cpu = card.update(batch), cpu.update(batch)
+    metric = {k: abs(m_card[k] - v) / (1 + abs(v))
+              for k, v in m_cpu.items() if k != "update_time_s"}
+    w_card, w_cpu = card.get_weights(), cpu.get_weights()
+    param = {k: float((w_card[k] - w_cpu[k]).abs().max()) for k in w_cpu}
+    return m_cpu, metric, param
+
+
+def rl_compare(card, cpu, batch, what: str) -> dict:
+    """One update on both learners: every metric within
+    TOL["rl_metric_rel"] × (1 + |m|), every parameter within
+    TOL["rl_param_abs"]. TF32 off and cuDNN's deterministic algorithms
+    for the comparison (`rl_f32`)."""
+    m_cpu, metric, param = rl_diff(card, cpu, batch)
+    for k, rel in metric.items():
+        if not rel <= TOL["rl_metric_rel"]:
+            raise AssertionError(f"rl {what}: {k} differs by {rel} "
+                                 f"(cpu {m_cpu[k]})")
+    worst = max(param, key=param.get)
+    if not param[worst] <= TOL["rl_param_abs"]:
+        raise AssertionError(f"rl {what}: parameters differ by "
+                             f"{param[worst]} ({worst})")
+    rl_on_device(card, card.device)
+    return {"metric_rel_err": max(metric.values()),
+            "param_max_abs_err": param[worst], "kl": m_cpu["kl"]}
+
+
+def rl_forward_gap(card, cpu, obs: np.ndarray) -> float:
+    """The largest gap between the card's and the CPU's logits and values
+    on `obs` (TF32 off, cuDNN deterministic), checked against
+    TOL["rl_forward_abs"]. The ReLUs are continuous, so a pre-activation
+    that rounds to the other side of 0 moves the outputs by its own
+    rounding only."""
+    outs = []
+    for ln in (card, cpu):
+        with rl_f32(), torch.no_grad():
+            outs.append([t.cpu() for t in ln.module(
+                torch.as_tensor(obs, device=ln.device))])
+    gap = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    if not gap <= TOL["rl_forward_abs"]:
+        raise AssertionError(f"rl conv module: the forward differs by {gap}")
+    return gap
+
+
+def rl_conv_parity_runs(dev, repeats: int = 3, modes=_RL_CONV_MODES,
+                        dtype=torch.float32) -> list:
+    """`rl_phase` (d)'s update, card against CPU at T 16 × N 8 with the
+    parameters in `dtype`, `repeats` times from fresh learners under each
+    `rl_f32` mode: each run's worst parameter and the parameters over
+    TOL["rl_param_abs"], then the gap between the card learners of a
+    mode's first two runs (0 when the card repeats its bits). Not run by
+    `main()`."""
+    from ray_tpu_torch.rllib import PPOLearnerConfig
+    cfg = PPOLearnerConfig(num_actions=6, seed=0)
+    batch = rl_as(rl_pixel_batch(16, 8), dtype)
+    runs = []
+    for mode in modes:
+        weights = []
+        for r in range(repeats):
+            card, cpu = rl_pair(dev, cfg, lambda: rl_conv_module(dtype))
+            _, metric, param = rl_diff(card, cpu, batch, mode)
+            worst = max(param, key=param.get)
+            runs.append({"mode": mode, "dtype": str(dtype), "repeat": r,
+                         "metric_rel_err": max(metric.values()),
+                         "param_max_abs_err": param[worst], "worst": worst,
+                         "over_tol": sorted(k for k, v in param.items()
+                                            if v > TOL["rl_param_abs"])})
+            weights.append(card.get_weights())
+            log("rl conv parity: " + json.dumps(runs[-1]))
+            del card, cpu
+        if len(weights) > 1:
+            runs.append({"mode": mode, "dtype": str(dtype),
+                         "card_vs_card_max_abs": max(
+                             float((weights[0][k] - weights[1][k])
+                                   .abs().max()) for k in weights[0])})
+            log("rl conv parity: " + json.dumps(runs[-1]))
+    return runs
+
+
+def rl_update_trace(learner, batch, conv: str) -> list:
+    """One update of `learner` on `batch` under `rl_f32(conv)`, with,
+    for each minibatch it runs, its parameters before the step, the
+    step's ratios, its convolutions' outputs before their ReLUs, and the
+    gradients and their global norm before the clip. Not run by
+    `main()`."""
+    steps = []
+    loss, clip = learner._loss, learner._clip_by_global_norm
+
+    def traced_loss(mb, denom):
+        pre = []
+        hooks = [conv.register_forward_hook(
+            lambda m, i, o: pre.append(o.detach().cpu()))
+            for conv in getattr(learner.module, "conv", ())]
+        try:
+            with torch.no_grad():
+                logits, _ = learner.module(mb["obs"])
+                logp = learner.module.dist_log_prob(logits, mb["actions"])
+        finally:
+            for h in hooks:
+                h.remove()
+        steps.append({"params": [p.detach().cpu().clone()
+                                 for p in learner.module.parameters()],
+                      "ratio": torch.exp(logp - mb["logp"]).cpu(),
+                      "pre_relu": pre})
+        return loss(mb, denom)
+
+    def traced_clip(grads):
+        steps[-1]["grad_norm"] = float(torch.nn.utils.get_total_norm(grads))
+        steps[-1]["grads"] = [g.detach().cpu().clone() for g in grads]
+        return clip(grads)
+
+    learner._loss, learner._clip_by_global_norm = traced_loss, traced_clip
+    try:
+        with rl_f32(conv):
+            learner.update(batch)
+    finally:
+        del learner._loss, learner._clip_by_global_norm
+    return steps
+
+
+def rl_conv_divergence(dev, modes=("deterministic",),
+                       dtype=torch.float32) -> list:
+    """Where a card learner's update parts from the CPU learner's on
+    `rl_phase` (d)'s parity batch, the parameters in `dtype`: for each of
+    `modes` (a fresh card learner each), each minibatch step's largest
+    parameter, ratio and gradient gaps, both gradient norms, the samples
+    on the other side of the ratio clip, and the convolution outputs on
+    the other side of their ReLU's 0 (with the largest CPU value among
+    them). Not run by `main()`."""
+    from ray_tpu_torch.rllib import PPOLearnerConfig
+    cfg = PPOLearnerConfig(num_actions=6, seed=0)
+    batch = rl_as(rl_pixel_batch(16, 8), dtype)
+    cpu = rl_conv_learner(cfg, "cpu", dtype)
+    ref = rl_update_trace(cpu, batch, "deterministic")
+    out = []
+    for mode in modes:
+        got = rl_update_trace(rl_conv_learner(cfg, dev, dtype), batch, mode)
+        rows = []
+        for i, (g, h) in enumerate(zip(got, ref)):
+            flips = [(x > 0) != (y > 0)
+                     for x, y in zip(g["pre_relu"], h["pre_relu"])]
+            rows.append({
+                "step": i,
+                "param_gap": max(float((p - q).abs().max())
+                                 for p, q in zip(g["params"], h["params"])),
+                "grad_gap": max(float((p - q).abs().max())
+                                for p, q in zip(g["grads"], h["grads"]))
+                if "grads" in g else None,
+                "grad_norm": [g.get("grad_norm"), h.get("grad_norm")],
+                "ratio_max_gap": float((g["ratio"] - h["ratio"]).abs().max()),
+                "ratio_clip_flips": int(
+                    (((g["ratio"] - 1).abs() > cfg.clip_eps)
+                     != ((h["ratio"] - 1).abs() > cfg.clip_eps)).sum()),
+                "relu_flips": [int(f.sum()) for f in flips],
+                "cpu_pre_relu_at_flips_max": max(
+                    [float(y[f].abs().max())
+                     for f, y in zip(flips, h["pre_relu"]) if f.any()],
+                    default=None)})
+        out.append({"mode": mode, "dtype": str(dtype), "steps": rows})
+        log("rl conv divergence: " + json.dumps(out[-1]))
+    return out
+
+
+def rl_conv_learner(cfg, device, dtype):
+    """A PPOLearner on `device` over `rl_conv_module(dtype)`, from `cfg`."""
+    from ray_tpu_torch.rllib import PPOLearner
+    return PPOLearner(dataclasses.replace(cfg, device=str(device)),
+                      module=rl_conv_module(dtype))
+
+
+def rl_update_ms(learner, batch, repeats: int) -> float:
+    """p50 of `repeats` updates on `batch` (each ends in a host read)."""
+    times = []
+    for _ in range(repeats):
+        times.append(learner.update(batch)["update_time_s"] * 1e3)
+    return statistics.median(times)
+
+
+def rl_gate(algo) -> tuple:
+    """Train `algo` until a mean return of RL_GATE_RETURN, or for
+    RL_GATE_ITERS iterations: (best return, iterations, each one's
+    metrics)."""
+    best, hist = 0.0, []
+    for _ in range(RL_GATE_ITERS):
+        hist.append(algo.train())
+        r = hist[-1].get("episode_return_mean", float("nan"))
+        if r == r:
+            best = max(best, r)
+        if best >= RL_GATE_RETURN:
+            break
+    return best, len(hist), hist
+
+
+def rl_gate_runs(seeds=(0,), devices=(None,)) -> list:
+    """The gate of `rl_phase` (b) for each learner device (None: the
+    card) and seed: iterations to the bar and the return curve, to tell
+    the card's trajectory from the CPU's. Not run by `main()`."""
+    from ray_tpu_torch.rllib import PPOConfig
+    runs = []
+    for device in devices:
+        for seed in seeds:
+            algo = PPOConfig().environment(cartpole_envs).training(
+                seed=seed, device=device).build()
+            t0 = time.perf_counter()
+            try:
+                best, its, hist = rl_gate(algo)
+            finally:
+                algo.stop()
+            runs.append({"seed": seed, "device": device or "card",
+                         "iterations": its, "best": best,
+                         "wall_s": time.perf_counter() - t0,
+                         "returns": [round(h["episode_return_mean"], 3)
+                                     for h in hist],
+                         "kl": [h["kl"] for h in hist]})
+            log("rl gate: " + json.dumps({k: v for k, v in runs[-1].items()
+                                          if k not in ("returns", "kl")}))
+    return runs
+
+
+def rl_weight_sums(weights: dict) -> list:
+    return [checksum(torch.as_tensor(weights[k])) for k in sorted(weights)]
+
+
+def rl_phase(dev, smi: str, device=None) -> dict:
+    """Phase 13, RL: (a) a PPO learner on the card against one on the
+    CPU, one update on the toy batch and one on a 64 × 32 CartPole batch
+    from the env runner; (b) the PPO CartPole gate in process (PPOConfig
+    defaults, seed 0, ≥ 450 within 250 iterations, the learner on the
+    card), and the same update timed on a CPU learner; (c) PPO through
+    the runtime: two CPU runner actors and one learner actor holding
+    `GPU: 1`, the runners' weights equal to the learner's after every
+    sync, a rising mean return, the card's memory back after stop();
+    (d) ConvActorCriticModule at its defaults (84 × 84 × 4, the Atari
+    conv stack, hidden 256) through PPOLearner(module=...): card against
+    CPU at T 16 × N 8, the update in float64 and the forward in float32,
+    then the card's update ms and peak at T 64 × N 32;
+    (e) MultiAgentPPO with two policies on TwoCartPoles, both learners on
+    the card and both policies' returns finite. `device` is the
+    algorithms' (None: the card, their default; a CPU rehearsal passes
+    "cpu")."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import (EnvRunnerConfig, PPOConfig, PPOLearner,
+                                     PPOLearnerConfig, SingleAgentEnvRunner)
+    from ray_tpu_torch.rllib.env.multi_agent import (MultiAgentPPOConfig,
+                                                     PolicySpec)
+    t_phase = time.perf_counter()
+    out = {"device": torch.cuda.get_device_name(0), "smi": smi}
+    defaults = PPOConfig()
+
+    # (a) parity, card against CPU, at PPOConfig's learner settings
+    cfg = PPOLearnerConfig(
+        obs_dim=4, num_actions=2, hidden=tuple(defaults.hidden),
+        num_epochs=defaults.num_epochs,
+        num_minibatches=defaults.num_minibatches,
+        target_kl=defaults.target_kl, seed=0)
+    card, cpu = rl_pair(dev, cfg)
+    parity = {"toy": rl_compare(card, cpu, rl_toy_batch(), "toy batch")}
+    runner = SingleAgentEnvRunner(EnvRunnerConfig(
+        env=cartpole_envs, num_envs=defaults.num_envs_per_env_runner,
+        rollout_length=defaults.rollout_length, seed=0))
+    runner.set_weights(cpu.get_weights())
+    cart_batch = runner.sample()
+    runner.stop()
+    parity["cartpole_64x32"] = rl_compare(card, cpu, cart_batch,
+                                          "CartPole batch")
+    out["parity"] = parity
+    log(f"rl (a) [{smi}]: {json.dumps(parity)}")
+    del card, cpu
+
+    # (b) the PPO gate on the card, in process
+    algo = PPOConfig().environment(cartpole_envs).training(
+        seed=0, device=device).build()
+    rl_on_device(algo.learner_group._local, dev)
+    t0 = time.perf_counter()
+    try:
+        best, its, hist = rl_gate(algo)
+        gate_s = time.perf_counter() - t0
+        rl_on_device(algo.learner_group._local, dev)
+        batch = algo.env_runner_group._local.sample()
+        card_learner = algo.learner_group._local
+        cpu_learner = PPOLearner(dataclasses.replace(card_learner.config,
+                                                     device="cpu"))
+        cpu_learner.set_state(card_learner.get_state())
+        update_card = rl_update_ms(card_learner, batch, 10)
+        update_cpu = rl_update_ms(cpu_learner, batch, 10)
+    finally:
+        algo.stop()
+    gate = {
+        "passed": best >= RL_GATE_RETURN, "best_return": best,
+        "iterations": its, "wall_s": gate_s,
+        "sample_ms_p50": statistics.median(
+            h["time_sample_s"] * 1e3 for h in hist),
+        "update_ms_p50": statistics.median(
+            h["time_update_s"] * 1e3 for h in hist),
+        "env_steps_per_s_p50": statistics.median(
+            float(h["env_steps_per_s"]) for h in hist),
+        "env_steps": hist[-1]["num_env_steps_sampled_lifetime"],
+        "return_every_10": [round(h["episode_return_mean"], 1)
+                            for h in hist[::10]],
+        "update_ms_card_p50_after": update_card,
+        "update_ms_cpu_p50_after": update_cpu,
+        "cpu_threads": torch.get_num_threads(),
+    }
+    out["gate"] = gate
+    log(f"rl (b) [{smi}]: {json.dumps(gate)}")
+    if not gate["passed"]:
+        raise AssertionError(f"PPO failed the CartPole gate on the card: "
+                             f"best {best} in {its} iterations")
+
+    # (c) through the runtime: CPU runner actors, a GPU learner actor
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        algo = PPOConfig().environment(this_module().cartpole_envs) \
+            .env_runners(num_env_runners=2).resources(num_learners=1) \
+            .training(seed=0, device=device).build()
+        grp = algo.env_runner_group
+        sync_ms = []
+        sync_weights = grp.sync_weights
+
+        def timed_sync(weights):
+            t = time.perf_counter()
+            sync_weights(weights)
+            sync_ms.append((time.perf_counter() - t) * 1e3)
+        grp.sync_weights = timed_sync
+        returns, iters, t0 = [], [], time.perf_counter()
+        try:
+            for _ in range(RL_RUNTIME_ITERS):
+                t = time.perf_counter()
+                m = algo.train()
+                iters.append({"iteration_ms": (time.perf_counter() - t) * 1e3,
+                              "sample_ms": m["time_sample_s"] * 1e3,
+                              "update_ms": m["time_update_s"] * 1e3,
+                              "sync_ms": sync_ms[-1]})
+                returns.append(m["episode_return_mean"])
+                want = rl_weight_sums(algo.learner_group.get_weights())
+                got = [rl_weight_sums(w) for w in
+                       grp.manager.foreach_actor("get_weights").values()]
+                if len(got) != 2 or any(g != want for g in got):
+                    raise AssertionError("rl (c): a runner's weights differ "
+                                         "from the learner's after a sync")
+            wall = time.perf_counter() - t0
+        finally:
+            algo.stop()
+    finally:
+        ray_tpu_torch.shutdown()
+    if not max(returns[-5:]) > returns[0]:
+        raise AssertionError(f"rl (c): the mean return did not rise: "
+                             f"{returns}")
+    out["runtime"] = {
+        "iterations": RL_RUNTIME_ITERS, "wall_s": wall,
+        "return_first": returns[0], "return_last": returns[-1],
+        "return_max": max(returns),
+        **{f"{k}_p50": statistics.median(i[k] for i in iters)
+           for k in ("iteration_ms", "sample_ms", "update_ms", "sync_ms")},
+        "not_returned_gib": memory_back(free0)}
+    log(f"rl (c) [{smi}]: {json.dumps(out['runtime'])}")
+
+    # (d) the conv module at its defaults. Its update is held to the
+    # CPU's in float64: in float32 a ReLU input that rounds to the other
+    # side of 0 on one device switches a unit's gradient, and Adam
+    # carries that past TOL["rl_param_abs"] (`rl_conv_divergence`). In
+    # float32 the forward is held and the update's gap recorded.
+    conv_cfg = PPOLearnerConfig(num_actions=6, seed=0)
+    parity_batch = rl_pixel_batch(16, 8)
+    card, cpu = rl_pair(dev, conv_cfg, lambda: rl_conv_module(torch.float64))
+    conv = {"parity_16x8_f64": rl_compare(
+        card, cpu, rl_as(parity_batch, torch.float64),
+        "conv module (float64)")}
+    del card, cpu
+    card, cpu = rl_pair(dev, conv_cfg, rl_conv_module)
+    rl_on_device(card, dev)
+    conv["params"] = sum(p.numel() for p in card.module.parameters())
+    conv["forward_16x8_f32_max_abs_err"] = rl_forward_gap(
+        card, cpu, parity_batch["obs"])
+    _, metric, param = rl_diff(card, cpu, parity_batch)
+    conv["update_16x8_f32_gap"] = {
+        "metric_rel_err": max(metric.values()),
+        "param_max_abs_err": max(param.values())}
+    del cpu
+    big = rl_pixel_batch(64, 32, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    conv["update_ms_64x32_p50"] = rl_update_ms(card, big, 5)
+    conv["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["conv"] = conv
+    log(f"rl (d) [{smi}]: {json.dumps(conv)}")
+    del card, big
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) multi-agent PPO, two policies, both learners on the card
+    ma = MultiAgentPPOConfig(
+        env_fn=TwoCartPoles,
+        policies={"p0": PolicySpec(4, 2), "p1": PolicySpec(4, 2)},
+        policy_mapping_fn=lambda a: "p0" if a == "a0" else "p1",
+        num_envs_per_env_runner=16, rollout_length=64, seed=0,
+        device=device).build()
+    try:
+        for ln in ma.learners.values():
+            rl_on_device(ln, dev)
+        for _ in range(RL_MA_ITERS):
+            m = ma.train()
+        rets = {pid: m[f"episode_return_mean/policy/{pid}"]
+                for pid in ("p0", "p1")}
+    finally:
+        ma.stop()
+    if not all(np.isfinite(v) for v in rets.values()):
+        raise AssertionError(f"rl (e): returns {rets}")
+    out["multi_agent"] = {"iterations": RL_MA_ITERS, "returns": rets,
+                          "iteration_ms_last": m["time_iteration_s"] * 1e3}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"rl: {json.dumps(out)}")
+    return out
+
+
 def resources(res: dict, kind: str) -> dict:
     """A flash kernel's resources at head_dim 128 (the main paths'), then
     ptxas's and the card's numbers at both head dims."""
@@ -3498,6 +4198,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     piped = pipeline_phase(trained, dev, smi)
     log("pipeline: " + json.dumps(piped))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rl_phase(dev, smi)
     # launches on each main path, each read just after that path ran
     paths = {"engine_core": served["launches"],
              "llm_engine": served["llm_engine"]["launches"],

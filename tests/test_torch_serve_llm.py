@@ -269,10 +269,12 @@ def test_engine_refuses_params_on_another_device(models):
 # ----------------------------------------------------- import hygiene
 def test_port_imports_neither_jax_nor_ray_tpu():
     """Every module of the port, and chip_smoke, imports neither JAX nor
-    the JAX package. The runtime's wire carries cloudpickled closures in
-    protobuf envelopes, as the JAX wire does (the chip machine has both
-    packages); the compute modules, `ops/` and `models/`, import neither,
-    which a fresh interpreter that imports only those checks."""
+    the JAX package, nor gymnasium (the chip machine has none: the RL
+    env runners import it only for a gymnasium env id). The runtime's
+    wire carries cloudpickled closures in protobuf envelopes, as the JAX
+    wire does (the chip machine has both packages); the compute modules,
+    `ops/` and `models/`, import neither, which a fresh interpreter that
+    imports only those checks."""
     def run(code):
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -300,7 +302,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "    importlib.import_module(m.name)\n"
         "importlib.import_module('chip_smoke')\n"
         "from ray_tpu_torch.serve.llm import LLMEngine\n"
-        "bad = sorted(n for n in sys.modules if " + jax_or_ray_tpu + ")\n"
+        "bad = sorted(n for n in sys.modules if " + jax_or_ray_tpu
+        + "\n             or n in ('gymnasium', 'gym')"
+        + " or n.startswith(('gymnasium.', 'gym.')))\n"
         + report)
     assert imported >= 54, sorted(modules)[:200]
     for name in ("_private.config", "_private.context",
@@ -317,7 +321,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "dryrun", "dag", "util.collective", "util.tracing",
                  "experimental", "experimental.channel",
                  "experimental.wire_channel", "experimental.dag_channels",
-                 "parallel.pipeline", "train.pipeline"):
+                 "parallel.pipeline", "train.pipeline", "rllib",
+                 "rllib.core.learner", "rllib.env.env_runner",
+                 "rllib.algorithms.ppo"):
         assert "ray_tpu_torch." + name in modules, name
     imported, modules = run(
         "import sys, pkgutil, importlib\n"
