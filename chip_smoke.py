@@ -135,7 +135,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the CPU in float64, the float32 forward card against CPU, then its
      update ms and peak at T 64 × N 32; (e) `MultiAgentPPO`, two policies on two numpy
      CartPoles, both learners on the card, finite returns. No kernel
-     of the port lies on this path (the JAX RL stack is plain XLA).
+     of the port lies on this path (the JAX RL stack is plain XLA);
+ 14. rl algorithms: `ray_tpu_torch.rllib.algorithms`, `rllib.offline`
+     and `rllib.sebulba` with the learners on the card, the envs numpy
+     callables (`CartPoleVec`, and `PendulumVec`, Pendulum-v1 with
+     gymnasium's dynamics, seeding and autoreset): (a) IMPALA, APPO,
+     DQN (scalar, and C51 + dueling + noisy with fixed noise), SAC,
+     DreamerV3, BC, MARWIL and CQL, one update each on the card against
+     one on the CPU from the same weights, batch and draws, TF32 off
+     (in float64 for the learners whose update switches on an argmax, a
+     floor, a ReLU or a sampled one-hot, their float32 forward held to
+     1e-5), the learners' state on the card; (b) the IMPALA CartPole
+     gate of `tests/test_rllib.py` (4 runner actors × 8 envs, a mean
+     return of 450 within 200 iterations, seeds 1 then 7) through the
+     runtime, its update timed on the card and on a CPU learner; (c)
+     Sebulba through the runtime, 4 env-runner actors against 2 numpy
+     inference actors and then one inference actor whose forward runs
+     on the card (`TorchPolicy`): every update counted, no shard gap,
+     staleness within (rl_ring_depth + 2) × runners; (d) the DreamerV3
+     gate of `tests/test_rllib.py` and a state round trip; (e) DQN
+     (C51 + noisy) and SAC for fixed iterations: finite losses, targets
+     moving, update ms; the card's memory back after every stop(). No
+     kernel of the port lies on this path either.
 The last three lines are the card (`nvidia-smi`), the kernels as JSON,
 and `{"ok": true, "device": {...}}`.
 """
@@ -144,6 +165,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -154,6 +176,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -3553,6 +3576,85 @@ class CartPoleVec:
         pass
 
 
+class PendulumVec:
+    """Pendulum-v1 as a vector env in numpy, with gymnasium's vector API.
+
+    Gymnasium's dynamics (`envs/classic_control/pendulum.py`: g 10, m 1,
+    l 1, dt 0.05, torque clipped to ±2, speed to ±8, the cost on the
+    normalised angle, the speed and the torque, in numpy's dtypes: the
+    torque stays float32), its 200-step truncation (it never
+    terminates), its seeding (env i of `reset(seed=s)` draws from
+    `Generator(PCG64(SeedSequence(s + i)))`, the state from
+    `uniform([-π, -1], [π, 1])`) and its next-step autoreset."""
+
+    max_speed, max_torque, dt, g, m, l = 8.0, 2.0, 0.05, 10.0, 1.0, 1.0
+    max_episode_steps = 200
+
+    def __init__(self, num_envs: int):
+        self.num_envs = num_envs
+        high = np.array([1.0, 1.0, self.max_speed], np.float32)
+        self.single_observation_space = Box(-high, high)
+        self.single_action_space = Box([-self.max_torque], [self.max_torque])
+        self._rngs = [np.random.default_rng() for _ in range(num_envs)]
+        self.state = np.zeros((num_envs, 2))
+        self.steps = np.zeros(num_envs, np.int64)
+        self._autoreset = np.zeros(num_envs, bool)
+
+    def _draw(self, i: int) -> np.ndarray:
+        high = np.array([np.pi, 1.0])
+        return self._rngs[i].uniform(low=-high, high=high)
+
+    def _obs(self) -> np.ndarray:
+        # per env, on numpy scalars: numpy's vectorised sin and cos may
+        # differ from its scalar ones by an ulp
+        return np.array([[np.cos(th), np.sin(th), thdot]
+                         for th, thdot in self.state], np.float32)
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rngs = [np.random.Generator(np.random.PCG64(
+                np.random.SeedSequence(seed + i)))
+                for i in range(self.num_envs)]
+        self.state = np.stack([self._draw(i) for i in range(self.num_envs)])
+        self.steps[:] = 0
+        self._autoreset[:] = False
+        return self._obs(), {}
+
+    def step(self, actions):
+        u = np.clip(np.asarray(actions), -self.max_torque,
+                    self.max_torque)[:, 0]
+        state = np.empty_like(self.state)
+        reward = np.empty(self.num_envs)
+        g, m, l, dt = self.g, self.m, self.l, self.dt
+        for i, ((th, thdot), u_i) in enumerate(zip(self.state, u)):
+            norm = ((th + np.pi) % (2 * np.pi)) - np.pi
+            reward[i] = -(norm ** 2 + 0.1 * thdot ** 2 + 0.001 * (u_i ** 2))
+            newthdot = thdot + (3 * g / (2 * l) * np.sin(th)
+                                + 3.0 / (m * l ** 2) * u_i) * dt
+            newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+            state[i] = (th + newthdot * dt, newthdot)
+        self.steps += 1
+        truncated = self.steps >= self.max_episode_steps
+        terminated = np.zeros(self.num_envs, bool)
+        for i in np.nonzero(self._autoreset)[0]:
+            state[i] = self._draw(i)
+        reset = self._autoreset
+        self.steps[reset] = 0
+        truncated[reset] = False
+        reward[reset] = 0.0
+        self.state = state
+        self._autoreset = truncated.copy()
+        return self._obs(), reward, terminated, truncated, {}
+
+    def close(self) -> None:
+        pass
+
+
+def pendulum_envs(num_envs: int) -> PendulumVec:
+    """The env callable for Pendulum-v1 (as `cartpole_envs`)."""
+    return PendulumVec(num_envs)
+
+
 def cartpole_envs(num_envs: int) -> CartPoleVec:
     """The env callable of `EnvRunnerConfig.env` (a module-level function
     of `this_module()`, so it pickles by reference to runner actors)."""
@@ -4115,6 +4217,586 @@ def rl_phase(dev, smi: str, device=None) -> dict:
     return out
 
 
+# ------------------------------------------------- RL algorithms (phase 14)
+# Iterations and sizes of rl_algos_phase: the JAX tests' own configs
+# (tests/test_rllib.py:387-417, :839-869, :795-833; test_sebulba.py:253)
+RL_IMPALA_RETURN, RL_IMPALA_ITERS, RL_IMPALA_SEEDS = 450.0, 200, (1, 7)
+RL_DREAMER_ITERS = 12
+RL_DQN_ITERS, RL_SAC_ITERS = 10, 6
+RL_SEBULBA_ITERS = 2
+
+
+def rl_double(obj) -> None:
+    """Every module and floating tensor attribute of `obj` in float64, in
+    place (before any optimizer step: Adam makes its state lazily)."""
+    for v in vars(obj).values():
+        if isinstance(v, torch.nn.Module):
+            v.double()
+        elif isinstance(v, torch.Tensor) and v.is_floating_point():
+            v.data = v.data.double()
+
+
+def rl_tensors(obj) -> dict:
+    """Every parameter, buffer and floating tensor attribute of `obj`
+    (its public attributes: acting state such as DreamerV3's carried
+    (h, z) is private), by attribute and name, on its device."""
+    out = {}
+    for name, v in vars(obj).items():
+        if name.startswith("_"):
+            continue
+        if isinstance(v, torch.nn.Module):
+            out.update({f"{name}.{k}": t for k, t in v.state_dict().items()})
+        elif isinstance(v, torch.Tensor) and v.is_floating_point():
+            out[name] = v.detach()
+    return out
+
+
+def rl_state_on(obj, dev) -> None:
+    """Every tensor of `obj` (`rl_tensors`) and of its optimizers' state
+    on `dev`'s type."""
+    tensors = list(rl_tensors(obj).values())
+    for v in vars(obj).values():
+        opts = v if isinstance(v, list) else [v]
+        for o in opts:
+            if isinstance(o, torch.optim.Optimizer):
+                for st in o.state.values():
+                    tensors += [x for k, x in st.items() if k != "step"]
+    where = {t.device.type for t in tensors}
+    if where != {dev.type}:
+        raise AssertionError(f"learner state on {where}, not {dev.type}")
+
+
+def rl_to(x, dev):
+    """`x` (a tensor, or a nest of them with Nones) on `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: rl_to(v, dev) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(rl_to(v, dev) for v in x)
+    return x
+
+
+def rl_heuristic_cartpole(obs: np.ndarray) -> np.ndarray:
+    """tests/test_connectors_offline.py's expert: angle + velocity."""
+    return (obs[:, 2] + 0.5 * obs[:, 3] > 0).astype(np.int32)
+
+
+def rl_algo_specs(tmp: str) -> list:
+    """(a)'s learners: name, f64 (its card update held to the CPU in
+    float64, its f32 forward to TOL["rl_forward_abs"]), make(device) ->
+    learner from a fixed seed (weights drawn on the CPU), inputs(cpu
+    learner) -> the update's host inputs (batch and draws), step(learner,
+    inputs, dev) -> metrics, forward(learner, inputs, dev) -> tensors."""
+    from ray_tpu_torch.rllib.algorithms import (APPOLearner, DQNConfig,
+                                                DreamerV3Config, IMPALAConfig,
+                                                IMPALALearner,
+                                                IMPALALearnerConfig,
+                                                SACConfig)
+    from ray_tpu_torch.rllib.algorithms.appo import APPOLearnerConfig
+    from ray_tpu_torch.rllib.algorithms.sac import METRICS as SAC_METRICS
+    from ray_tpu_torch.rllib.env.env_runner import (EnvRunnerConfig,
+                                                    SingleAgentEnvRunner)
+    from ray_tpu_torch.rllib.offline import (BCConfig, CQLConfig,
+                                             MARWILConfig, _load_transitions,
+                                             record_transitions)
+    impala = IMPALAConfig()
+    runner = SingleAgentEnvRunner(EnvRunnerConfig(
+        env=cartpole_envs, num_envs=8, rollout_length=32, seed=0))
+    vtrace_batch = runner.sample()
+    runner.stop()
+    path = record_transitions(cartpole_envs, rl_heuristic_cartpole,
+                              os.path.join(tmp, "expert"), num_steps=2000,
+                              seed=1)
+    obs, actions, rewards, new_obs, terms, _ = _load_transitions(path)
+    rows = np.random.default_rng(0).integers(0, len(obs), 256)
+    offline = (obs[rows], actions[rows].astype(np.int32), rewards[rows],
+               new_obs[rows], terms[rows])
+
+    def learner(cls, cfg_cls, **kw):
+        return lambda d: cls(cfg_cls(
+            obs_dim=4, num_actions=2, hidden=tuple(impala.hidden),
+            lr=impala.lr, max_grad_norm=impala.max_grad_norm, seed=0,
+            device=str(d), **kw))
+
+    def v_step(ln, inp, dev):
+        return {k: v for k, v in ln.update(inp).items()
+                if k != "update_time_s"}
+
+    def v_forward(ln, inp, dev):
+        return list(ln.module(torch.as_tensor(inp["obs"], device=dev)))
+
+    def dqn_inputs(algo):
+        b = algo._runners[0].sample(algo.config.rollout_steps_per_iteration)
+        algo.buffer.add(b)
+        return algo.buffer.sample(algo.config.train_batch_size), \
+            algo.draw_noise()
+
+    def dqn_step(algo, inp, dev):
+        loss, td = algo._update(inp[0], rl_to(inp[1], dev))
+        return {"loss": float(loss), "td_abs_sum": float(td.sum())}
+
+    def dqn_forward(algo, inp, dev):
+        # the network's outputs: Q, or C51's logits (its Q, their
+        # softmax's mean over a support up to v_max = 200, sits where an
+        # f32 ulp is 7.6e-6)
+        m = algo.module
+        obs = torch.as_tensor(inp[0]["obs"], device=dev).to(
+            m.q[0].weight.dtype)
+        with torch.no_grad():
+            return [m.forward_dist(obs) if m.num_atoms > 1 else m(obs)]
+
+    def sac_inputs(algo):
+        b = algo._runners[0].sample(algo.config.rollout_steps_per_iteration)
+        return b, algo.draw_noise(len(b["rewards"]))
+
+    def sac_step(algo, inp, dev):
+        return dict(zip(SAC_METRICS, algo._update(
+            inp[0], inp[1].to(dev)).tolist()))
+
+    def sac_forward(algo, inp, dev):
+        m = algo.module
+        obs = torch.as_tensor(inp[0]["obs"], device=dev)
+        act = torch.as_tensor(inp[0]["actions"], device=dev)
+        with torch.no_grad():
+            return [*m.pi_dist(obs), m.q("q1", obs, act), m.q("q2", obs, act)]
+
+    def dreamer_inputs(algo):
+        b = algo._sample()
+        return b, algo.draw(*b["actions"].shape)
+
+    def dreamer_step(algo, inp, dev):
+        stats = algo._update(inp[0], rl_to(inp[1], dev))
+        return {k: float(v) for k, v in stats.items()}
+
+    def dreamer_forward(algo, inp, dev):
+        g = torch.Generator().manual_seed(3)
+        feat = torch.randn((64, algo.feat_dim), generator=g).to(dev)
+        h = torch.randn((64, algo.config.deter_dim), generator=g).to(dev)
+        x = torch.randn((64, algo.z_dim + algo.num_actions),
+                        generator=g).to(dev)
+        from ray_tpu_torch.rllib.algorithms.dreamerv3 import _mlp
+        with torch.no_grad():
+            return [_mlp(algo.actor, feat), _mlp(algo.critic, feat),
+                    algo.wm.gru(h, x)]
+
+    def offline_step(args):
+        def step(algo, inp, dev):
+            out = algo._update(*[inp[i] for i in args])
+            return {f"m{i}": v for i, v in enumerate(
+                out.reshape(-1).tolist())}
+        return step
+
+    def offline_forward(algo, inp, dev):
+        with torch.no_grad():
+            out = algo.module(torch.as_tensor(inp[0], device=dev))
+        return list(out) if isinstance(out, tuple) else [out]
+
+    dqn = dict(env=cartpole_envs, seed=0)
+    c51 = dict(dqn, num_atoms=51, v_min=0.0, v_max=200.0, dueling=True,
+               noisy=True, n_step=3)
+    dreamer = dict(env=cartpole_envs, num_envs=8, rollout_length=32,
+                   num_updates_per_iteration=8, units=64, deter_dim=64,
+                   embed_dim=32, actor_lr=3e-3, critic_lr=1e-3, wm_lr=6e-4,
+                   ent_coef=1e-3, imag_starts=192, seed=0)
+    offline_cfg = dict(env=cartpole_envs, input_path=path, seed=0)
+    return [
+        dict(name="impala", f64=False,
+             make=learner(IMPALALearner, IMPALALearnerConfig),
+             inputs=lambda ln: vtrace_batch, step=v_step, forward=v_forward),
+        dict(name="appo", f64=False,
+             make=learner(APPOLearner, APPOLearnerConfig),
+             inputs=lambda ln: vtrace_batch, step=v_step, forward=v_forward),
+        dict(name="dqn", f64=True,
+             make=lambda d: DQNConfig(**dqn, device=str(d)).build(),
+             inputs=dqn_inputs, step=dqn_step, forward=dqn_forward),
+        dict(name="dqn_c51_dueling_noisy", f64=True,
+             make=lambda d: DQNConfig(**c51, device=str(d)).build(),
+             inputs=dqn_inputs, step=dqn_step, forward=dqn_forward),
+        dict(name="sac", f64=True,
+             make=lambda d: SACConfig(env=pendulum_envs, seed=0,
+                                      device=str(d)).build(),
+             inputs=sac_inputs, step=sac_step, forward=sac_forward),
+        dict(name="dreamerv3", f64=True,
+             make=lambda d: DreamerV3Config(**dreamer,
+                                            device=str(d)).build(),
+             inputs=dreamer_inputs, step=dreamer_step,
+             forward=dreamer_forward),
+        dict(name="bc", f64=False,
+             make=lambda d: BCConfig(**offline_cfg, device=str(d)).build(),
+             inputs=lambda a: offline, step=offline_step((0, 1)),
+             forward=offline_forward),
+        dict(name="marwil", f64=False,
+             make=lambda d: MARWILConfig(**offline_cfg,
+                                         device=str(d)).build(),
+             inputs=lambda a: (offline[0], offline[1], a._rtg[rows]),
+             step=offline_step((0, 1, 2)), forward=offline_forward),
+        dict(name="cql", f64=True,
+             make=lambda d: CQLConfig(**offline_cfg, device=str(d)).build(),
+             inputs=lambda a: offline, step=offline_step((0, 1, 2, 3, 4)),
+             forward=offline_forward),
+    ]
+
+
+def rl_stop(obj) -> None:
+    stop = getattr(obj, "stop", None)
+    if stop is not None:
+        stop()
+
+
+def rl_algo_parity(spec: dict, dev) -> dict:
+    """(a) for one learner: one update on the card against one on the CPU
+    from the same weights, inputs and draws (TF32 off; in float64 where
+    `spec["f64"]`, its float32 forward then held to
+    TOL["rl_forward_abs"]): every metric within TOL["rl_metric_rel"] ×
+    (1 + |m|), every parameter within TOL["rl_param_abs"], the card
+    learner's state and optimizer state on the card."""
+    cpu_dev = torch.device("cpu")
+    out = {"dtype": "float64" if spec["f64"] else "float32"}
+    card, cpu = spec["make"](dev), spec["make"](cpu_dev)
+    try:
+        inputs = spec["inputs"](cpu)
+        with rl_f32():
+            fwd = [spec["forward"](ln, inputs, d)
+                   for ln, d in ((card, dev), (cpu, cpu_dev))]
+        out["forward_f32_max_abs_err"] = max(
+            float((a.detach().cpu() - b.detach()).abs().max())
+            for a, b in zip(*fwd))
+        if not out["forward_f32_max_abs_err"] <= TOL["rl_forward_abs"]:
+            raise AssertionError(f"rl algos (a) {spec['name']}: the f32 "
+                                 f"forward differs by "
+                                 f"{out['forward_f32_max_abs_err']}")
+        if spec["f64"]:
+            for ln in (card, cpu):
+                rl_double(ln)
+        with rl_f32():
+            m_card = spec["step"](card, inputs, dev)
+            m_cpu = spec["step"](cpu, inputs, cpu_dev)
+        rel = {k: abs(m_card[k] - v) / (1 + abs(v)) for k, v in m_cpu.items()}
+        w_card, w_cpu = rl_tensors(card), rl_tensors(cpu)
+        param = {k: float((w_card[k].cpu() - v).abs().max())
+                 for k, v in w_cpu.items()}
+        worst_m = max(rel, key=rel.get)
+        worst_p = max(param, key=param.get)
+        if not rel[worst_m] <= TOL["rl_metric_rel"]:
+            raise AssertionError(f"rl algos (a) {spec['name']}: {worst_m} "
+                                 f"differs by {rel[worst_m]}")
+        if not param[worst_p] <= TOL["rl_param_abs"]:
+            raise AssertionError(f"rl algos (a) {spec['name']}: parameters "
+                                 f"differ by {param[worst_p]} ({worst_p})")
+        rl_state_on(card, dev)
+        out.update(metric_rel_err=rel[worst_m], param_max_abs_err=param[worst_p],
+                   params=sum(v.numel() for k, v in w_cpu.items()))
+        return out
+    finally:
+        rl_stop(card)
+        rl_stop(cpu)
+
+
+def rl_update_card_cpu_ms(card, batch, repeats: int = 20) -> dict:
+    """An IMPALA learner's update p50 on the card and on a CPU learner
+    with the same state, same batch (each update ends in its host read of
+    the metrics)."""
+    from ray_tpu_torch.rllib.algorithms import IMPALALearner
+    cpu = IMPALALearner(dataclasses.replace(card.config, device="cpu"))
+    cpu.set_state(card.get_state())
+    return {"update_ms_card_p50": rl_update_ms(card, batch, repeats),
+            "update_ms_cpu_p50": rl_update_ms(cpu, batch, repeats)}
+
+
+def rl_sync_ms(fn, repeats: int) -> float:
+    """p50 of `repeats` calls of `fn`, each ended by a synchronize."""
+    times = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def rl_sebulba(dev, module_factory=None, num_inference: int = 2,
+               inference_options=None, device=None) -> dict:
+    """(c): Sebulba through the runtime: 4 env-runner actors on numpy
+    CartPoles acting against `num_inference` inference actors (their
+    forward in numpy, or `module_factory`'s), the learner on the card
+    in this process; RL_SEBULBA_ITERS iterations of 8 updates. Asserts
+    the updates counted, no shard sequence gap, staleness within
+    (rl_ring_depth + 2) × runners, forwards ≤ requests."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib.sebulba import SebulbaConfig
+    runners = 4
+    cfg = SebulbaConfig(
+        env=this_module().cartpole_envs, num_env_runners=runners,
+        num_inference_actors=num_inference, num_envs_per_runner=4,
+        rollout_length=8, num_updates_per_iteration=8, device=device,
+        module_factory=module_factory,
+        inference_options=inference_options)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    ray_tpu_torch.init(num_cpus=runners + num_inference)
+    try:
+        t0 = time.perf_counter()
+        tr = cfg.build()
+        start_s = time.perf_counter() - t0
+        publish_ms = []
+        publish = tr._publish
+
+        def timed_publish(force=False):
+            t = time.perf_counter()
+            publish(force)
+            publish_ms.append((time.perf_counter() - t) * 1e3)
+        tr._publish = timed_publish
+        try:
+            rl_state_on(tr.learner, dev)
+            t0 = time.perf_counter()
+            for _ in range(RL_SEBULBA_ITERS):
+                m = tr.train()
+            wall = time.perf_counter() - t0
+            stats = ray_tpu_torch.get([h.stats.remote() for h in tr._infer])
+        finally:
+            tr.stop()
+            del tr
+    finally:
+        ray_tpu_torch.shutdown()
+    want = RL_SEBULBA_ITERS * cfg.num_updates_per_iteration
+    bound = (CONFIG.rl_ring_depth + 2) * runners
+    forwards = sum(s["forwards"] for s in stats)
+    requests = sum(s["requests"] for s in stats)
+    if m["num_learner_updates"] != want:
+        raise AssertionError(f"sebulba: {m['num_learner_updates']} updates, "
+                             f"not {want}")
+    if m["seq_gaps"] != 0:
+        raise AssertionError(f"sebulba: {m['seq_gaps']} shard gaps")
+    if not m["staleness_max"] <= bound:
+        raise AssertionError(f"sebulba: staleness {m['staleness_max']} > "
+                             f"{bound}")
+    if not 0 < forwards <= requests:
+        raise AssertionError(f"sebulba: {forwards} forwards for {requests} "
+                             f"requests")
+    return {"start_s": start_s, "wall_s": wall,
+            "updates": m["num_learner_updates"], "seq_gaps": m["seq_gaps"],
+            "staleness_p50": m["staleness_p50"],
+            "staleness_p95": m["staleness_p95"],
+            "staleness_max": m["staleness_max"], "staleness_bound": bound,
+            "publish_ms_p50": statistics.median(publish_ms),
+            "publishes": len(publish_ms),
+            "learner_transitions_per_s": m["env_steps_consumed"] / wall,
+            "update_ms_last": m["update_time_s"] * 1e3,
+            "forwards": forwards, "requests": requests,
+            "policy_versions": [s["policy_version"] for s in stats],
+            "not_returned_gib": memory_back(free0)}
+
+
+def rl_algos_phase(dev, smi: str, device=None) -> dict:
+    """Phase 14, the RL algorithms and Sebulba (`rllib/algorithms/`,
+    `rllib/offline.py`, `rllib/sebulba/`), the learners on the card:
+    (a) IMPALA, APPO, DQN (scalar; C51 + dueling + noisy with fixed
+    noise), SAC, DreamerV3, BC, MARWIL and CQL: one update on the card
+    against one on the CPU (`rl_algo_parity`); (b) the IMPALA CartPole
+    gate of tests/test_rllib.py:387 through the runtime (4 runner actors
+    × 8 CartPoleVec envs, rollout 32, lr 6e-4, 16 updates an iteration,
+    seeds 1 then 7, a mean return of 450 within 200 iterations), its
+    update timed on the card and on a CPU learner; (c) Sebulba through
+    the runtime, with numpy inference actors and then one inference
+    actor whose forward runs on the card (`TorchPolicy`); (d) the
+    DreamerV3 gate of tests/test_rllib.py:839 and a get/set_state round
+    trip; (e) DQN (C51 + dueling + noisy) on CartPoleVec and SAC on
+    PendulumVec for fixed iterations: finite losses, the target networks
+    moving, the update ms; (f) the card's memory back after every
+    stop(). `device` is the algorithms' (None: the card)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib.algorithms import (DQNConfig, DreamerV3Config,
+                                                IMPALAConfig, SACConfig)
+    from ray_tpu_torch.rllib.env.env_runner import (EnvRunnerConfig,
+                                                    SingleAgentEnvRunner)
+    from ray_tpu_torch.rllib.sebulba import TorchPolicy
+    t_phase = time.perf_counter()
+    out = {"device": torch.cuda.get_device_name(0), "smi": smi}
+
+    def settle(what: str, free0: int) -> float:
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = memory_back(free0)
+        out.setdefault("not_returned_gib", {})[what] = held
+        return held
+
+    # (a) every learner, card against CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    tmp = tempfile.mkdtemp(prefix="rtt_rl_algos_")
+    try:
+        parity = {}
+        for spec in rl_algo_specs(tmp):
+            parity[spec["name"]] = rl_algo_parity(spec, dev)
+            log(f"rl algos (a) {spec['name']} [{smi}]: "
+                f"{json.dumps(parity[spec['name']])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["parity"] = parity
+    settle("parity", free0)
+
+    # (b) the IMPALA gate through the runtime, the learner on the card
+    free0 = torch.cuda.mem_get_info()[0]
+    ray_tpu_torch.init(num_cpus=4)
+    gate = {"passed": False, "runs": []}
+    try:
+        best = 0.0
+        for seed in RL_IMPALA_SEEDS:
+            algo = (IMPALAConfig().environment(this_module().cartpole_envs)
+                    .env_runners(num_env_runners=4, num_envs_per_env_runner=8,
+                                 rollout_length=32)
+                    .training(lr=6e-4, ent_coef=0.01,
+                              num_updates_per_iteration=16, seed=seed,
+                              device=device).build())
+            try:
+                rl_state_on(algo.learner, dev)
+                hist, t0 = [], time.perf_counter()
+                for _ in range(RL_IMPALA_ITERS):
+                    hist.append(algo.train())
+                    r = hist[-1].get("episode_return_mean", float("nan"))
+                    if r == r:
+                        best = max(best, r)
+                    if best >= RL_IMPALA_RETURN:
+                        break
+                wall = time.perf_counter() - t0
+                rl_state_on(algo.learner, dev)
+                run = {"seed": seed, "best_return": best,
+                       "iterations": len(hist), "wall_s": wall,
+                       "update_ms_p50": statistics.median(
+                           h["update_time_s"] * 1e3 for h in hist),
+                       "iteration_ms_p50": statistics.median(
+                           h["time_iteration_s"] * 1e3 for h in hist),
+                       "env_steps": hist[-1]["num_env_steps_sampled_lifetime"],
+                       "env_steps_per_s": (
+                           hist[-1]["num_env_steps_sampled_lifetime"] / wall),
+                       "weight_broadcasts": hist[-1]["num_weight_broadcasts"],
+                       "dropped_batches": hist[-1]["dropped_batches_lifetime"],
+                       "return_every_10": [round(h["episode_return_mean"], 1)
+                                           for h in hist[::10]]}
+                if best >= RL_IMPALA_RETURN:
+                    runner = SingleAgentEnvRunner(EnvRunnerConfig(
+                        env=cartpole_envs, num_envs=8, rollout_length=32,
+                        seed=seed))
+                    run.update(rl_update_card_cpu_ms(algo.learner,
+                                                     runner.sample()))
+                    runner.stop()
+                gate["runs"].append(run)
+                log(f"rl algos (b) [{smi}]: {json.dumps(run)}")
+            finally:
+                algo.stop()
+                del algo
+            if best >= RL_IMPALA_RETURN:
+                gate["passed"] = True
+                break
+    finally:
+        ray_tpu_torch.shutdown()
+    out["impala_gate"] = gate
+    settle("impala_gate", free0)
+    if not gate["passed"]:
+        raise AssertionError(f"IMPALA failed the CartPole gate on the card: "
+                             f"{gate['runs']}")
+
+    # (c) Sebulba through the runtime: numpy inference actors, then one
+    # inference actor whose forward runs on the card
+    out["sebulba"] = rl_sebulba(dev, device=device)
+    log(f"rl algos (c) numpy inference [{smi}]: "
+        f"{json.dumps(out['sebulba'])}")
+    out["sebulba_card_inference"] = rl_sebulba(
+        dev, module_factory=functools.partial(TorchPolicy, 4, 2, (64, 64),
+                                              device="cuda"),
+        num_inference=1, device=device,
+        inference_options={"num_cpus": 1, "num_gpus": 1,
+                           "max_concurrency": 16})
+    log(f"rl algos (c) card inference [{smi}]: "
+        f"{json.dumps(out['sebulba_card_inference'])}")
+
+    # (d) the DreamerV3 gate, the world model and actor-critic on the card
+    free0 = torch.cuda.mem_get_info()[0]
+    algo = DreamerV3Config().environment(cartpole_envs).training(
+        num_envs=8, rollout_length=32, num_updates_per_iteration=8,
+        units=64, deter_dim=64, embed_dim=32,
+        actor_lr=3e-3, critic_lr=1e-3, wm_lr=6e-4, ent_coef=1e-3,
+        imag_starts=192, seed=0, device=device).build()
+    try:
+        t0 = time.perf_counter()
+        stats = [algo.train() for _ in range(RL_DREAMER_ITERS)]
+        rl_state_on(algo, dev)
+        state = algo.get_state()
+        algo.set_state(state)
+        after = algo.train()
+        wall = time.perf_counter() - t0
+    finally:
+        algo.stop()
+        del algo
+    wm_first = stats[0]["wm_loss"]
+    wm_last = float(np.mean([s["wm_loss"] for s in stats[-3:]]))
+    imag = float(np.mean([s["imag_return_mean"] for s in stats[-3:]]))
+    dreamer = {"iterations": len(stats) + 1, "wall_s": wall,
+               "iteration_ms_p50": statistics.median(
+                   s["time_iteration_s"] * 1e3 for s in stats),
+               "wm_loss_first": wm_first, "wm_loss_last3": wm_last,
+               "imag_return_last3": imag,
+               "actor_entropy_last": stats[-1]["actor_entropy"],
+               "round_trip_iteration": after["training_iteration"]}
+    out["dreamerv3"] = dreamer
+    log(f"rl algos (d) [{smi}]: {json.dumps(dreamer)}")
+    if not (after["training_iteration"] == RL_DREAMER_ITERS + 1
+            and wm_last < 0.75 * wm_first and imag > 2.0
+            and stats[-1]["actor_entropy"] < 0.65):
+        raise AssertionError(f"DreamerV3 failed its gate on the card: "
+                             f"{dreamer}")
+    settle("dreamerv3", free0)
+
+    # (e) DQN (C51 + dueling + noisy) and SAC for fixed iterations
+    for name, config, iters in (
+            ("dqn_c51_dueling_noisy", DQNConfig().environment(cartpole_envs)
+             .training(num_atoms=51, v_min=0.0, v_max=200.0, dueling=True,
+                       noisy=True, n_step=3, seed=0, device=device),
+             RL_DQN_ITERS),
+            ("sac", SACConfig().environment(pendulum_envs).training(
+                seed=0, device=device), RL_SAC_ITERS)):
+        free0 = torch.cuda.mem_get_info()[0]
+        algo = config.build()
+        try:
+            target0 = {k: v.clone() for k, v in
+                       algo.target.state_dict().items()}
+            t0 = time.perf_counter()
+            hist = [algo.train() for _ in range(iters)]
+            wall = time.perf_counter() - t0
+            rl_state_on(algo, dev)
+            moved = max(float((v - target0[k]).abs().max())
+                        for k, v in algo.target.state_dict().items())
+            batch = algo.buffer.sample(algo.config.train_batch_size)
+            if name == "sac":
+                loss_keys = ("critic_loss", "actor_loss")
+                ms = rl_sync_ms(lambda: algo._update(
+                    batch, algo.draw_noise(len(batch["rewards"]))), 20)
+            else:
+                loss_keys = ("td_loss",)
+                ms = rl_sync_ms(lambda: algo._update(
+                    batch, algo.draw_noise()), 20)
+        finally:
+            algo.stop()
+            del algo
+        res = {"iterations": iters, "wall_s": wall,
+               "updates": hist[-1]["num_updates_lifetime"],
+               "losses_last": {k: hist[-1][k] for k in loss_keys},
+               "target_moved_max_abs": moved, "update_ms_p50": ms,
+               "iteration_ms_p50": statistics.median(
+                   h["time_iteration_s"] * 1e3 for h in hist)}
+        out[name] = res
+        log(f"rl algos (e) {name} [{smi}]: {json.dumps(res)}")
+        if not (all(np.isfinite(v) for v in res["losses_last"].values())
+                and moved > 0):
+            raise AssertionError(f"rl algos (e) {name}: {res}")
+        settle(name, free0)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"rl algos: {json.dumps(out)}")
+    return out
+
 def resources(res: dict, kind: str) -> dict:
     """A flash kernel's resources at head_dim 128 (the main paths'), then
     ptxas's and the card's numbers at both head dims."""
@@ -4201,6 +4883,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     rl_phase(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rl_algos_phase(dev, smi)
     # launches on each main path, each read just after that path ran
     paths = {"engine_core": served["launches"],
              "llm_engine": served["llm_engine"]["launches"],

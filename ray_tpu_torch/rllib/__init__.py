@@ -4,9 +4,10 @@ Port of `ray_tpu/rllib/`. Component layout mirrors the reference's new
 API stack (SURVEY.md §2.3): ActorCriticModule ~ RLModule,
 PPOLearner/LearnerGroup ~ Learner stack, SingleAgentEnvRunner/
 EnvRunnerGroup ~ EnvRunner stack, and FaultTolerantActorManager as the
-shared actor-fleet substrate. The learners run on the card unless given
-`device="cpu"`; the env runners sample in numpy on the CPU. Sebulba and
-`tune_trainable` follow with ROADMAP queue 1, items 8 and 11.
+shared actor-fleet substrate, and Sebulba's inference actors, env
+runners and learner. The learners run on the card unless given
+`device="cpu"`; the env runners sample in numpy on the CPU.
+`tune_trainable` follows with ROADMAP queue 1, item 11.
 """
 from ray_tpu_torch.rllib.actor_manager import (CallResult,
                                                FaultTolerantActorManager,
@@ -20,6 +21,9 @@ from ray_tpu_torch.rllib.core.rl_module import (ActorCriticModule,
 from ray_tpu_torch.rllib.env.env_runner import (EnvRunnerConfig,
                                                 SingleAgentEnvRunner)
 from ray_tpu_torch.rllib.env.env_runner_group import EnvRunnerGroup
+from ray_tpu_torch.rllib.sebulba import (InferenceActor, Sebulba,
+                                         SebulbaConfig, SebulbaEnvRunner,
+                                         SebulbaLearner, SebulbaRunnerConfig)
 
 __all__ = [
     "AlgorithmConfig",
@@ -27,4 +31,6 @@ __all__ = [
     "ActorCriticModule", "Categorical", "SingleAgentEnvRunner",
     "EnvRunnerConfig", "EnvRunnerGroup", "FaultTolerantActorManager",
     "RemoteCallResults", "CallResult",
+    "InferenceActor", "SebulbaEnvRunner", "SebulbaRunnerConfig",
+    "SebulbaLearner", "Sebulba", "SebulbaConfig",
 ]

@@ -20,7 +20,7 @@ import numpy as np
 
 from ray_tpu_torch.rllib.algorithm_config import AlgorithmConfig
 from ray_tpu_torch.rllib.core.learner import LearnerGroup, PPOLearnerConfig
-from ray_tpu_torch.rllib.env.env_runner import EnvRunnerConfig
+from ray_tpu_torch.rllib.env.env_runner import EnvRunnerConfig, env_spaces
 from ray_tpu_torch.rllib.env.env_runner_group import EnvRunnerGroup
 
 
@@ -92,19 +92,11 @@ class PPO:
         self.env_runner_group.sync_weights(self.learner_group.get_weights())
 
     def _probe_env(self) -> None:
-        if callable(self.config.env):
-            env = self.config.env(1)
-            obs_space = env.single_observation_space
-            space = env.single_action_space
-        else:
-            import gymnasium as gym
-            env = gym.make(self.config.env)
-            obs_space, space = env.observation_space, env.action_space
+        obs_space, space = env_spaces(self.config.env)
         self._obs_dim = int(np.prod(obs_space.shape))
         self._continuous = not hasattr(space, "n")
         self._num_actions = (int(np.prod(space.shape))
                              if self._continuous else int(space.n))
-        env.close()
 
     # ------------------------------------------------------------ api
     def train(self) -> Dict[str, Any]:

@@ -86,6 +86,52 @@ def _host(tree):
     return tree
 
 
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm, in place: g / norm * max_norm where the
+    norm exceeds max_norm, g itself otherwise."""
+    norm = torch.nn.utils.get_total_norm(grads)
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device, dtype=norm.dtype)
+    div = torch.where(keep, one, norm)
+    mul = torch.where(keep, one, one * max_norm)
+    for g in grads:
+        g.div_(div).mul_(mul)
+
+
+def descend(opt: torch.optim.Optimizer, params: List[torch.Tensor],
+            grads) -> None:
+    """One step of `opt` on `params` along `grads`."""
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+
+
+def allreduce_sum(parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """SUM over the process group of every tensor in `parts`, in one
+    call."""
+    import torch.distributed as tdist
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    tdist.all_reduce(flat, op=tdist.ReduceOp.SUM)
+    return [f.view_as(p) for f, p in
+            zip(flat.split([p.numel() for p in parts]), parts)]
+
+
+def dp_world(num_devices: int) -> tuple:
+    """(world size, rank) of the process group a learner with
+    `num_devices` ranks belongs to; (1, 0) for one."""
+    if num_devices <= 1:
+        return 1, 0
+    import torch.distributed as tdist
+    world = tdist.get_world_size() if tdist.is_initialized() else 1
+    if world != num_devices:
+        raise ValueError(
+            f"num_devices={num_devices} needs a process group of that "
+            f"many ranks (LearnerGroup(num_learners={num_devices}) forms "
+            f"one); this process has {world}")
+    return world, tdist.get_rank()
+
+
 class PPOLearner:
     """Holds the module and optimizer state on its device; `update(batch)`
     runs one PPO update.
@@ -126,18 +172,7 @@ class PPOLearner:
         self._precomputed_adv = bool(self._connectors and any(
             isinstance(c, GeneralAdvantageEstimation)
             for c in self._connectors.connectors))
-        self._world, self._rank = 1, 0
-        if config.num_devices > 1:
-            import torch.distributed as tdist
-            world = (tdist.get_world_size() if tdist.is_initialized()
-                     else 1)
-            if world != config.num_devices:
-                raise ValueError(
-                    f"num_devices={config.num_devices} needs a process "
-                    f"group of that many ranks (LearnerGroup("
-                    f"num_learners={config.num_devices}) forms one); "
-                    f"this process has {world}")
-            self._world, self._rank = world, tdist.get_rank()
+        self._world, self._rank = dp_world(config.num_devices)
         self._timer = {"updates": 0, "update_time": 0.0,
                        "minibatches": 0, "transitions": 0}
 
@@ -186,24 +221,10 @@ class PPOLearner:
         return total, metrics.detach()
 
     def _clip_by_global_norm(self, grads: List[torch.Tensor]) -> None:
-        """optax.clip_by_global_norm: g / norm * max_norm where the norm
-        exceeds max_norm, g itself otherwise."""
-        max_norm = self.config.max_grad_norm
-        norm = torch.nn.utils.get_total_norm(grads)
-        keep = norm < max_norm
-        one = torch.ones((), device=norm.device)
-        div = torch.where(keep, one, norm)
-        mul = torch.where(keep, one, one * max_norm)
-        for g in grads:
-            g.div_(div).mul_(mul)
+        clip_by_global_norm_(grads, self.config.max_grad_norm)
 
     def _allreduce(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
-        """SUM over the group of every tensor in `parts`, in one call."""
-        import torch.distributed as tdist
-        flat = torch.cat([p.reshape(-1) for p in parts])
-        tdist.all_reduce(flat, op=tdist.ReduceOp.SUM)
-        return [f.view_as(p) for f, p in
-                zip(flat.split([p.numel() for p in parts]), parts)]
+        return allreduce_sum(parts)
 
     def _sgd(self, batch: Dict[str, Any],
              perms: Sequence) -> Dict[str, float]:
@@ -266,10 +287,7 @@ class PPOLearner:
                     *grads, metrics = self._allreduce(grads + [metrics])
                 if not stop:
                     self._clip_by_global_norm(grads)
-                    for p, g in zip(params, grads):
-                        p.grad = g
-                    self._opt.step()
-                    self._opt.zero_grad(set_to_none=True)
+                    descend(self._opt, params, grads)
                 stop = stop or abs(metrics[3].item()) > c.target_kl
         vpred = values[:-1]
         explained = 1.0 - (
@@ -366,8 +384,8 @@ class _LearnerRank:
             s.bind(("", 0))
             return s.getsockname()[1]
 
-    def setup(self, config: PPOLearnerConfig, coordinator: Optional[str],
-              rank: int) -> int:
+    def setup(self, config, coordinator: Optional[str], rank: int,
+              learner_cls: Optional[type] = None) -> int:
         if config.num_devices > 1:
             from ray_tpu_torch.parallel.dist import initialize_distributed
             device = None
@@ -380,7 +398,7 @@ class _LearnerRank:
                 coordinator, config.num_devices, rank,
                 backend="nccl" if device is not None else "gloo",
                 device=device)
-        self.learner = PPOLearner(config)
+        self.learner = (learner_cls or PPOLearner)(config)
         return rank
 
     def call(self, name: str, *args):
@@ -399,11 +417,15 @@ class LearnerGroup:
 
     num_learners=0 -> local learner in this process (reference local
     mode); `remote=True` hosts a single learner in an actor.
+    `learner_cls` is the learner each rank holds (PPOLearner by default;
+    IMPALA's group holds IMPALALearners).
     """
 
-    def __init__(self, config: PPOLearnerConfig, num_learners: int = 0,
+    def __init__(self, config, num_learners: int = 0,
                  num_cpus_per_learner: float = 1.0,
-                 remote: Optional[bool] = None):
+                 remote: Optional[bool] = None,
+                 learner_cls: Optional[type] = None):
+        learner_cls = learner_cls or PPOLearner
         if num_learners > 0:
             config = dataclasses.replace(config, num_devices=num_learners)
         self.config = config
@@ -411,7 +433,7 @@ class LearnerGroup:
         self._local: Optional[PPOLearner] = None
         self._manager = None
         if not self._remote:
-            self._local = PPOLearner(config)
+            self._local = learner_cls(config)
             return
         import ray_tpu_torch
         from ray_tpu_torch.rllib.actor_manager import FaultTolerantActorManager
@@ -436,7 +458,7 @@ class LearnerGroup:
             coordinator = f"{addr}:{port}"
         try:
             ranks = ray_tpu_torch.get(
-                [a.setup.remote(config, coordinator, rank)
+                [a.setup.remote(config, coordinator, rank, learner_cls)
                  for rank, a in enumerate(actors)], timeout=300)
         except BaseException:
             for a in actors:

@@ -280,15 +280,17 @@ class ConvActorCriticModule(nn.Module):
 
 # ------------------------------------------------------ weights across
 def _dense_pairs(module: nn.Module):
-    """(nest path, linear) for every dense layer, in the JAX nest's
-    layout: `pi`/`vf` lists for the MLP, single dicts for the conv
-    module's `torso`/`pi`/`vf`."""
+    """(nest path, state-dict prefix) of every dense layer, in the JAX
+    nest's layout: `pi`/`vf` lists for the MLP, single dicts for the conv
+    module's `torso`/`pi`/`vf`; a module of another layout lists its own
+    (`dense_layout()`)."""
+    if hasattr(module, "dense_layout"):
+        return module.dense_layout()
     if isinstance(module, ActorCriticModule):
-        return [((head, i), layer) for head in ("pi", "vf")
-                for i, layer in enumerate(getattr(module, head))]
+        return [((head, i), f"{head}.{i}") for head in ("pi", "vf")
+                for i in range(len(getattr(module, head)))]
     if isinstance(module, ConvActorCriticModule):
-        return [((name,), getattr(module, name))
-                for name in ("torso", "pi", "vf")]
+        return [((name,), name) for name in ("torso", "pi", "vf")]
     raise TypeError(f"no weight layout for {type(module).__name__}")
 
 
@@ -298,17 +300,40 @@ def _nest_get(nest, path):
     return nest
 
 
+def _nest_set(nest: dict, path, leaf) -> None:
+    for p in path[:-1]:
+        nest = nest.setdefault(p, {})
+    nest[path[-1]] = leaf
+
+
+def _lists(nest):
+    """`nest` with every dict keyed 0..n-1 turned into a list."""
+    if not isinstance(nest, dict):
+        return nest
+    out = {k: _lists(v) for k, v in nest.items()}
+    if out and all(isinstance(k, int) for k in out) and \
+            sorted(out) == list(range(len(out))):
+        return [out[i] for i in range(len(out))]
+    return out
+
+
+# a dense leaf's JAX keys and their state-dict suffixes: weights are
+# (din, dout) there and (dout, din) here; NoisyNet sigmas likewise
+_DENSE_KEYS = (("w", "weight", True), ("b", "bias", False),
+               ("w_sig", "w_sig", True), ("b_sig", "b_sig", False))
+
+
 def from_jax_params(module: nn.Module, params) -> Dict[str, torch.Tensor]:
     """A JAX param tree (or the numpy nest `to_numpy_params` makes) ->
     `module`'s state dict, as CPU float32 tensors."""
     sd = {}
-    for path, layer in _dense_pairs(module):
+    for path, name in _dense_pairs(module):
         leaf = _nest_get(params, path)
-        name = ".".join(str(p) for p in path) if len(path) > 1 else path[0]
-        sd[f"{name}.weight"] = torch.from_numpy(
-            np.array(np.asarray(leaf["w"], np.float32).T, order="C"))
-        sd[f"{name}.bias"] = torch.from_numpy(
-            np.array(leaf["b"], np.float32))
+        for key, suffix, transpose in _DENSE_KEYS:
+            if key in leaf:
+                v = np.asarray(leaf[key], np.float32)
+                sd[f"{name}.{suffix}"] = torch.from_numpy(
+                    np.array(v.T if transpose else v, order="C"))
     if isinstance(module, ConvActorCriticModule):
         for i, leaf in enumerate(params["conv"]):
             w = np.asarray(leaf["w"], np.float32)            # HWIO
@@ -316,7 +341,7 @@ def from_jax_params(module: nn.Module, params) -> Dict[str, torch.Tensor]:
                 np.array(w.transpose(3, 2, 0, 1), order="C"))
             sd[f"conv.{i}.bias"] = torch.from_numpy(
                 np.array(leaf["b"], np.float32))
-    elif module.continuous:
+    elif getattr(module, "continuous", False):
         sd["log_std"] = torch.from_numpy(
             np.array(params["log_std"], np.float32))
     return sd
@@ -333,22 +358,21 @@ def to_numpy_params(module: nn.Module, state_dict) -> dict:
             v = v.detach().cpu().numpy()
         return np.asarray(v, np.float32)
 
+    nest: dict = {}
     if isinstance(module, ConvActorCriticModule):
-        nest = {"conv": [
+        nest["conv"] = [
             {"w": np.ascontiguousarray(
                 arr(f"conv.{i}.weight").transpose(2, 3, 1, 0)),
              "b": arr(f"conv.{i}.bias").copy()}
-            for i in range(len(module.conv))]}
-    else:
-        nest = {"pi": [None] * len(module.pi), "vf": [None] * len(module.vf)}
-        if module.continuous:
-            nest["log_std"] = arr("log_std").copy()
-    for path, _ in _dense_pairs(module):
-        name = ".".join(str(p) for p in path) if len(path) > 1 else path[0]
-        leaf = {"w": np.ascontiguousarray(arr(f"{name}.weight").T),
-                "b": arr(f"{name}.bias").copy()}
-        if len(path) > 1:
-            nest[path[0]][path[1]] = leaf
-        else:
-            nest[path[0]] = leaf
-    return nest
+            for i in range(len(module.conv))]
+    elif getattr(module, "continuous", False):
+        nest["log_std"] = arr("log_std").copy()
+    for path, name in _dense_pairs(module):
+        leaf = {}
+        for key, suffix, transpose in _DENSE_KEYS:
+            if f"{name}.{suffix}" in state_dict:
+                v = arr(f"{name}.{suffix}")
+                leaf[key] = np.ascontiguousarray(v.T) if transpose \
+                    else v.copy()
+        _nest_set(nest, path, leaf)
+    return _lists(nest)

@@ -9,7 +9,7 @@ each episode end.
 
 `EnvRunnerConfig.env` is a gymnasium id, made with
 `gym.make_vec(..., vectorization_mode="sync")` as in the JAX package
-(gymnasium is imported there and nowhere else), or a callable
+(gymnasium is imported in `make_env` and nowhere else), or a callable
 `env(num_envs)` that returns a vector env with gymnasium's vector API:
 `reset(seed=)`, `step`, `close`, `single_action_space` and
 `single_observation_space`, autoresetting on the step after an episode
@@ -27,6 +27,26 @@ import torch
 from ray_tpu_torch.rllib.core.rl_module import (ActorCriticModule,
                                                 from_jax_params,
                                                 to_numpy_params)
+
+
+def make_env(env: Union[str, Callable[[int], Any]], num_envs: int):
+    """The env seam of every runner: a callable `env(num_envs)` returns
+    its own vector env; a gymnasium id is made with
+    `gym.make_vec(..., vectorization_mode="sync")`, the one place the
+    port imports gymnasium."""
+    if callable(env):
+        return env(num_envs)
+    import gymnasium as gym
+    return gym.make_vec(env, num_envs=num_envs, vectorization_mode="sync")
+
+
+def env_spaces(env: Union[str, Callable[[int], Any]]) -> tuple:
+    """(observation space, action space) of one env of `env`."""
+    envs = make_env(env, 1)
+    try:
+        return envs.single_observation_space, envs.single_action_space
+    finally:
+        envs.close()
 
 
 @dataclasses.dataclass
@@ -66,13 +86,7 @@ class SingleAgentEnvRunner:
         self.config = config
         self.worker_index = worker_index
         seed = config.seed + 1000 * worker_index
-        if callable(config.env):
-            self._envs = config.env(config.num_envs)
-        else:
-            import gymnasium as gym
-            self._envs = gym.make_vec(
-                config.env, num_envs=config.num_envs,
-                vectorization_mode="sync")
+        self._envs = make_env(config.env, config.num_envs)
         act_space = self._envs.single_action_space
         self._continuous = not hasattr(act_space, "n")
         if self._continuous:

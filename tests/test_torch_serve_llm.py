@@ -323,7 +323,13 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "experimental.wire_channel", "experimental.dag_channels",
                  "parallel.pipeline", "train.pipeline", "rllib",
                  "rllib.core.learner", "rllib.env.env_runner",
-                 "rllib.algorithms.ppo"):
+                 "rllib.algorithms.ppo", "rllib.algorithms.impala",
+                 "rllib.algorithms.appo", "rllib.algorithms.dqn",
+                 "rllib.algorithms.sac", "rllib.algorithms.dreamerv3",
+                 "rllib.offline", "rllib.sebulba",
+                 "rllib.sebulba.inference", "rllib.sebulba.env_runner",
+                 "rllib.sebulba.learner", "rllib.sebulba.trainer",
+                 "rllib.sebulba.stats"):
         assert "ray_tpu_torch." + name in modules, name
     imported, modules = run(
         "import sys, pkgutil, importlib\n"
