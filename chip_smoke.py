@@ -43,12 +43,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      forward and RMSNorm launched there); a second `num_gpus=1` actor
      waits until the first is killed; after `shutdown()` the card's
      memory is back;
-  7. serve_llm: llama3-8b through `serve_llm`, the user's entry point:
+  7. serve_llm: llama3-8b cut to its first SERVE_LLM_LAYERS layers (held
+     to `serve()`'s schedule through EngineCore at that depth, made
+     first) through `serve_llm`, the user's entry point:
      the weights `put` in the object store (each large tensor in its own
      shm segment), one `num_gpus=1` replica deployed by the Serve
      controller from that ObjectRef, the same five requests through
      `LLMHandle.generate` and their TokenStreams, which must give
-     phase 5's EngineCore tokens exactly, with the flash forward and
+     that EngineCore's tokens exactly, with the flash forward and
      RMSNorm launched in the replica; after `serve.shutdown()` the
      card's memory is back; then the same with the replica on a node
      agent's card: a head with no GPU, node agent A (a
@@ -66,18 +68,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      its device idle share; then loss and backward under remat, full
      against save_attn (launch counts, bitwise equal loss and grads,
      each step's time);
-  9. trainer: the same model and batch through `TorchTrainer`, the
+  9. trainer: the same model, cut to its first TRAINER_LAYERS layers and
+     held to the same steps in this process at that depth, and batch
+     through `TorchTrainer`, the
      user's entry point to training: one `num_gpus=1` worker in a
      one-rank nccl group, batches from a `ray_tpu_torch.data` Dataset
      through `iter_torch_batches`, a checkpoint of the params and the
-     AdamW state at step 3 (~5.7 GB, with a checksum of every tensor),
-     the worker killed at step 5 and the group restarted from that
-     checkpoint to step 7: step 0's loss equal to phase 8's first,
-     later losses within a stated tolerance of its same steps, every
-     restored tensor equal to its checksum, 16 / 16 / 16 / 33 launches
+     AdamW state at step 3 (~2.0 GB at 4 layers, with a checksum of
+     every tensor), the worker killed at step 5 and the group restarted
+     from that checkpoint to step 7: step 0's loss equal to the
+     reference's first, later losses within a stated tolerance of its
+     same steps, every
+     restored tensor equal to its checksum, 4 / 4 / 4 / 9 launches
      of the kernels a step in the worker; after `shutdown()` the card's
      memory is back;
- 10. elastic: the same model and batch through the elastic
+ 10. elastic: phase 9's cut model and batch through the elastic
      `TorchTrainer` (`ScalingConfig(elastic=ElasticConfig(...))`) across
      a node's death: a head with no GPU, the worker on node agent A
      (a `ray_tpu_torch._private.node_agent` process owning the card's
@@ -85,10 +90,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (its worker gone and the card's memory back within a bound), then
      agent B, where the loop forms a new group whose worker restores
      the checkpoint through the object plane and trains to step 7:
-     every loss on both nodes equal to phase 8's at the same step bit
-     for bit, each step once in `metrics_history`, every restored
-     tensor equal to its checksum, 16 / 16 / 16 / 33 launches a step on
-     both nodes, the restore's broadcast to B complete and its route
+     every loss on both nodes equal to phase 9's reference at the same
+     step bit for bit, each step once in `metrics_history`, every
+     restored tensor equal to its checksum, 4 / 4 / 4 / 9 launches a
+     step on both nodes, the restore's broadcast to B complete and its route
      (TCP or mapped in place) printed; after `shutdown()` the card's
      memory is back;
  11. parallel: the parallel layer (`ray_tpu_torch.parallel`) on a
@@ -156,7 +161,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      gate of `tests/test_rllib.py` and a state round trip; (e) DQN
      (C51 + noisy) and SAC for fixed iterations: finite losses, targets
      moving, update ms; the card's memory back after every stop(). No
-     kernel of the port lies on this path either.
+     kernel of the port lies on this path either;
+ 7b. (after the agent phase) serve tp: llama3-8b from a replica sharded
+     over two tensor-parallel ranks on the card (gloo, each rank its
+     Megatron shard of the seed-0 weights and a cache of its kv heads):
+     (a) this process as rank 0 and a `num_gpus=0.5` rank actor against
+     one process, the 2,900-token prefill and 16 teacher-forced decode
+     steps, max|Δ| over max|logit| within a stated limit, both ranks'
+     launches counted; the flash forward at a rank's heads against its
+     plain version; (b) `serve_llm(mesh={"dp": 1, "tp": 1})`, one
+     `num_gpus=1` replica, `serve()`'s tokens exactly; (c)
+     `serve_llm(mesh={"tp": 2})` with `num_gpus=0.5` a rank: `serve()`'s
+     tokens but for printed near ties (steps whose one-process top-2
+     margin is below (a)'s gap), each rank half of (b)'s cache at its
+     page count, both ranks' launches; (d) the card's memory back;
+ 12b. (after the pipeline phase) tune: a `Tuner` over a `TorchTrainer`
+     with one `GPU: 1` worker, the bench model cut to 4 layers, an lr
+     grid of three under ASHA: a trial STOPPED, the best result the
+     lowest last loss, every trial's first loss bit-equal to this
+     process's, all four kernels launched in every trial's worker.
 The last three lines are the card (`nvidia-smi`), the kernels as JSON,
 and `{"ok": true, "device": {...}}`.
 """
@@ -405,7 +428,7 @@ def check_rms(dev) -> float:
 
 
 # (b, h, kvh, sq, sk, d, causal) for the forward: the llama3-8b prefill
-# and training shapes (both masks), s 4096, ragged s 1000, sq != sk under
+# (both masks, and at a tp=2 rank's heads) and training shapes, s 4096, ragged s 1000, sq != sk under
 # each mask (top-left causal alignment); then the edges of the kernel's
 # 64-row warpgroup tiles, 128-row blocks and 128-row K/V tiles, s 1 to 257
 # with both masks and head dims, the GQA group cycling through 1, 4 and 8
@@ -414,6 +437,7 @@ FWD_EDGES = itertools.product(
     (True, False))
 FWD_CASES = [(1, HEADS, KV_HEADS, S_MAIN, S_MAIN, HEAD_DIM, True),
              (1, HEADS, KV_HEADS, S_MAIN, S_MAIN, HEAD_DIM, False),
+             (1, HEADS // 2, KV_HEADS // 2, S_MAIN, S_MAIN, HEAD_DIM, True),
              (TRAIN_B, TRAIN_HEADS, TRAIN_HEADS, TRAIN_S, TRAIN_S, 128, True),
              (1, HEADS, KV_HEADS, 4096, 4096, HEAD_DIM, True),
              (1, 8, 2, 1000, 1000, 128, True),
@@ -1039,6 +1063,51 @@ def serve(dev) -> dict:
     out["llm_engine"] = serve_engine(dev, cfg, params, prompts, new_tokens,
                                      tokens, done, decode_p50)
     return out
+
+
+# Earlier paths cut in depth to keep the script inside its time limit:
+# the serve_llm and agent phases serve llama3-8b's first SERVE_LLM_LAYERS
+# layers (the weights put and relayed shrink with them), the trainer and
+# elastic phases train the bench model's first TRAINER_LAYERS (their
+# checkpoints shrink with them); each is held to the same calls in this
+# process at the same depth
+SERVE_LLM_LAYERS, TRAINER_LAYERS = 8, 4
+
+
+def serve_tokens(dev, cfg) -> dict:
+    """`serve()`'s schedule through EngineCore on `cfg` (seed-0 weights),
+    checked as `serve()` checks it: the tokens by request id."""
+    core = TimedCore(cfg, init_for_serving(Transformer(cfg), 0, dev),
+                     device=dev, num_pages=1024, page_size=16,
+                     max_batch=DECODE_ROWS)
+    lens, new_tokens, prompts = serve_requests(cfg)
+    tokens, done, _, _, launches = run_schedule(core, prompts, lens,
+                                                new_tokens)
+    check_schedule(cfg, core, prompts, new_tokens, tokens, done, launches)
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens": tokens, "layers": cfg.n_layers}
+
+
+def train_reference(dev, cfg, steps: int) -> dict:
+    """`train()`'s losses and step p50 on `cfg`: `steps` steps of
+    `bench.train_step` on `train()`'s batch from seed 0, in this
+    process."""
+    model = Transformer(cfg)
+    params = model.init(0, device=dev)
+    opt = bench.make_optimizer(params)
+    batch = bench.make_batch(cfg, TRAIN_B, TRAIN_S, dev)
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(bench.train_step(model, params, opt, batch).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del model, params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms_p50": statistics.median(step_ms[1:]),
+            "layers": cfg.n_layers}
 
 
 def get_frame(sink, eng, deadline: float, what: str) -> dict:
@@ -1702,8 +1771,9 @@ def trainer_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
     """The bench model trained through `TorchTrainer`, the user's entry
     point, from one `num_gpus=1` worker in a one-rank nccl group, with
     `train()`'s batch fed from a Dataset by `iter_torch_batches`; a
-    checkpoint at step 3 (params and AdamW state, ~5.7 GB), the worker
-    killed at step 5, and a restart from that checkpoint to step 7.
+    checkpoint at step 3 (params and AdamW state, 5.7 GB at full depth),
+    the worker killed at step 5, and a restart from that checkpoint to
+    step 7.
     Step 0's loss must equal `train()`'s first, later steps within
     TOL["trainer_loss_rel"] of its same steps; every step launches each
     kernel as a `train()` step does; after `shutdown()` the card's
@@ -2758,20 +2828,24 @@ def await_replica(handle, ctx, rt_serve, timeout: float = 300.0) -> list:
     return stats
 
 
-def drive_replica(handle, cfg, served: dict, what: str) -> dict:
+def drive_replica(handle, cfg, served: dict, what: str,
+                  exact: bool = True) -> dict:
     """A warm-up (the replica's first cuBLAS calls and the stream's first
     connection), then `serve()`'s five requests through
     `LLMHandle.generate`, each TokenStream consumed on its own thread. The
-    tokens must equal `serve()`'s EngineCore tokens exactly, the flash
-    forward must have launched once a layer a prefill in the replica and
-    RMSNorm there too. Returns the launches (differences of the
-    replica's counts around the requests), TTFT and TPOT p50 and the
+    tokens must equal `serve()`'s EngineCore tokens exactly (with
+    `exact`; else they are returned for the caller to judge), the flash
+    forward must have launched once a layer a prefill in the replica
+    (in each of its tp ranks) and RMSNorm there too. Returns the
+    launches (differences of the replica's counts around the requests;
+    by rank too for a replica over tp ranks), TTFT and TPOT p50 and the
     replica's peak."""
     lens, new_tokens, prompts = serve_requests(cfg)
     warm = handle.generate(prompts["r0"], max_tokens=2, timeout_s=120)
     if len(warm.tokens()) != 2:
         raise AssertionError("warm-up request")
-    before = handle.stats()[0]["kernel_launches"]
+    st0 = handle.stats()[0]
+    before = st0.get("kernel_launches_by_rank", [st0["kernel_launches"]])
     submitted = {}
     streams = {}
     for rid in prompts:
@@ -2781,27 +2855,36 @@ def drive_replica(handle, cfg, served: dict, what: str) -> dict:
                                        timeout_s=120)
     tokens, stamps = consume_streams(streams, 300.0)
     after = handle.stats()[0]
-    launches = {k: after["kernel_launches"][k] - before[k] for k in before}
-    if tokens != served["tokens"]:
+    by_rank = [{k: a[k] - b[k] for k in b} for a, b in zip(
+        after.get("kernel_launches_by_rank", [after["kernel_launches"]]),
+        before)]
+    if exact and tokens != served["tokens"]:
         raise AssertionError(f"{what} tokens {tokens} differ from "
                              f"EngineCore's {served['tokens']}")
-    if launches["flash_fwd"] != cfg.n_layers * len(prompts):
-        raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} "
-                             f"times in the {what} replica, expected a "
-                             f"layer a prefill")
-    if launches["rms_norm"] <= 0:
-        raise AssertionError(f"rms_norm never launched in the {what} "
-                             f"replica")
+    for rank, launches in enumerate(by_rank):
+        if launches["flash_fwd"] != cfg.n_layers * len(prompts):
+            raise AssertionError(
+                f"flash_fwd launched {launches['flash_fwd']} times in rank "
+                f"{rank} of the {what} replica, expected a layer a prefill")
+        if launches["rms_norm"] <= 0:
+            raise AssertionError(f"rms_norm never launched in rank {rank} "
+                                 f"of the {what} replica")
     ttft = [stamps[rid][0] - submitted[rid] for rid in prompts]
     tpot = [b - a for rid in prompts
             for a, b in zip(stamps[rid], stamps[rid][1:])]
-    return {"launches": {"flash_fwd": launches["flash_fwd"],
-                         "flash_dkdv": 0, "flash_dq": 0,
-                         "rms_norm": launches["rms_norm"]},
-            "ttft_ms_p50": statistics.median(ttft) * 1e3,
-            "tpot_ms_p50": statistics.median(tpot) * 1e3,
-            "generated_tokens": sum(map(len, tokens.values())),
-            "replica_peak_gib": after.get("device_peak_bytes", 0) / 2 ** 30}
+    out = {"launches": {"flash_fwd": by_rank[0]["flash_fwd"],
+                        "flash_dkdv": 0, "flash_dq": 0,
+                        "rms_norm": by_rank[0]["rms_norm"]},
+           "ttft_ms_p50": statistics.median(ttft) * 1e3,
+           "tpot_ms_p50": statistics.median(tpot) * 1e3,
+           "generated_tokens": sum(map(len, tokens.values())),
+           "replica_peak_gib": after.get("device_peak_bytes", 0) / 2 ** 30}
+    if "tp" in after:
+        out.update(launches_by_rank=by_rank, tokens=tokens,
+                   stats={k: after[k] for k in (
+                       "tp", "tp_backend", "num_pages", "cache_bytes_by_rank",
+                       "weights_s")})
+    return out
 
 
 def memory_back(free0: int) -> float:
@@ -2818,7 +2901,7 @@ def memory_back(free0: int) -> float:
     return held
 
 
-def serve_llm_phase(served: dict, dev) -> dict:
+def serve_llm_phase(served: dict, dev, cfg=None) -> dict:
     """llama3-8b through `serve_llm`, the user's entry point to LLM
     serving: the weights from seed 0, made on the card and `put` in the
     object store (one shm segment a large tensor, timed), one replica
@@ -2835,11 +2918,11 @@ def serve_llm_phase(served: dict, dev) -> dict:
     from ray_tpu_torch._private.specs import SESSION_TAG
     from ray_tpu_torch.serve.llm import serve_llm
     on_card = dev.type == "cuda"
-    cfg = llama3_8b()
+    cfg = cfg or llama3_8b()
     torch.cuda.synchronize()
     free0 = torch.cuda.mem_get_info()[0]
     ray_tpu_torch.init(num_cpus=4)
-    out = {}
+    out = {"layers": cfg.n_layers}
     try:
         params = init_for_serving(Transformer(cfg), seed=0, device=dev)
         leaves = bench.leaves(params)
@@ -2943,13 +3026,14 @@ class BytesSampler:
                 "relay_gb_s": served / span / 1e9 if span else None}
 
 
-def serve_llm_agent_phase(served: dict, dev) -> dict:
+def serve_llm_agent_phase(served: dict, dev, cfg=None) -> dict:
     """llama3-8b through `serve_llm` with its replica on a node agent's
     card: the head owns no GPU (`init(num_cpus=4, num_gpus=0)`), agent A
     (a node agent process) owns the card's `GPU: 1`, the weights from
     seed 0 are made on the card and `put` on the head, and the replica
-    (`num_gpus=1`) must run on A's node, so its `get` relays the 16.06 GB
-    ref from the head's store into A's over the object plane. `serve()`'s
+    (`num_gpus=1`) must run on A's node, so its `get` relays the weights
+    ref (16.06 GB at full depth) from the head's store into A's over the
+    object plane. `serve()`'s
     five requests through `LLMHandle.generate` must give its EngineCore
     tokens exactly, with the flash forward and RMSNorm launched in the
     replica; after `serve.shutdown()` and `shutdown()` the card's memory
@@ -2964,13 +3048,13 @@ def serve_llm_agent_phase(served: dict, dev) -> dict:
     from ray_tpu_torch.serve import _CONTROLLER_NAME
     from ray_tpu_torch.serve.llm import serve_llm
     on_card = dev.type == "cuda"
-    cfg = llama3_8b()
+    cfg = cfg or llama3_8b()
     room = host_room()
     log(f"serve_llm agent: /dev/shm free {room['shm_free_bytes']} B, "
         f"MemAvailable {room['mem_available_bytes']} B")
     torch.cuda.synchronize()
     free0 = torch.cuda.mem_get_info()[0]
-    out = {"host_room": room}
+    out = {"host_room": room, "layers": cfg.n_layers}
     phase_t0 = time.perf_counter()
     rt = ray_tpu_torch.init(num_cpus=4, num_gpus=0)
     agent = None
@@ -3045,6 +3129,409 @@ def serve_llm_agent_phase(served: dict, dev) -> dict:
         f"{relay['served_bytes']} B in {relay['relay_s']} s "
         f"({relay['relay_gb_s']} GB/s), TTFT p50 {out['ttft_ms_p50']:.1f} "
         f"ms, TPOT p50 {out['tpot_ms_p50']:.2f} ms")
+    return out
+
+
+# ------------------------------------------------------------ phase 7b
+# The tp phase: ranks of a replica, and the pages its kv budget buys at
+# tp=1 (serve()'s pool: 1,024 pages of 16, 2 GiB at llama3-8b)
+TP_RANKS, TP_BUDGET_PAGES = 2, 1024
+# tolerance, set from the arithmetic before any run: the tp ranks sum
+# the row-parallel products (wo, down) in f32 from two bf16 partials
+# where one process rounds one bf16 product, so each of the 64 residual
+# adds a token may round one bf16 ulp (2^-8 relative) the other way, and
+# the difference grows through 32 layers like a random walk; 5e-2 of
+# max|logit| is the limit of the prefill check against
+# Transformer.apply, whose matmuls round in other shapes (and hold).
+TOL["tp_logits_rel_to_max"] = 0.05
+
+
+def teacher_forced(model, params, cache, prompt, forced, dev,
+                   group=None) -> torch.Tensor:
+    """Prefill `prompt` into pages 0.., then one decode step a token of
+    `forced` (row 0 of a DECODE_ROWS batch), as EngineCore lays them out;
+    with a tp `group`, each step is announced to the other ranks first.
+    Returns the f32 logits rows on the host: row j is what chose token j
+    of `forced` (the last row, what would follow it)."""
+    from ray_tpu_torch.serve.llm import replica_group as rg
+    from ray_tpu_torch.serve.llm.engine import _bucket
+    cfg, page = model.config, 16
+    n = len(prompt)
+    max_pages = pages_needed(cfg.max_seq_len, page)
+    table = np.full((max_pages,), -1, np.int32)
+    used = pages_needed(n + len(forced), page)
+    table[:used] = np.arange(used)
+    padded = np.zeros((_bucket(n, hi=cfg.max_seq_len),), np.int32)
+    padded[:n] = prompt
+    if group is not None:
+        group.send_step(rg.KIND_PREFILL, (padded, table), n)
+    with torch.inference_mode():
+        logits, _ = decode.prefill(model, params,
+                                   torch.as_tensor(padded, device=dev), n,
+                                   torch.as_tensor(table, device=dev),
+                                   cache, page, group=group)
+        rows = [logits]
+        for j, tok in enumerate(forced):
+            tokens = np.zeros((DECODE_ROWS,), np.int32)
+            positions = np.zeros((DECODE_ROWS,), np.int32)
+            pts = np.full((DECODE_ROWS, max_pages), -1, np.int32)
+            active = np.zeros((DECODE_ROWS,), bool)
+            tokens[0], positions[0], pts[0], active[0] = tok, n + j, table, 1
+            if group is not None:
+                group.send_step(rg.KIND_DECODE,
+                                (tokens, positions, pts, active))
+            logits, _ = decode.decode_step(
+                model, params, cache,
+                *(torch.as_tensor(a, device=dev)
+                  for a in (tokens, positions, pts, active)), page,
+                group=group)
+            rows.append(logits[0])
+        return torch.stack(rows).cpu()
+
+
+def top2_margins(rows: torch.Tensor) -> list:
+    top = rows.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def tp_model_check(served: dict, dev, cfg) -> dict:
+    """Phase 7b (a), in a live runtime: every request of `serve()`
+    teacher-forced on its tokens in this process with no group (the top-2
+    margin of every step), the flash forward at a tp=2 rank's heads
+    against its plain version, then this process as rank 0 of a
+    `RankGroup` with one `num_gpus=0.5` rank actor (gloo: the ranks share
+    the card) runs the 2,900-token prompt's prefill and 16 decode steps
+    teacher-forced the same way; max|Δ| over max|logit| within
+    TOL["tp_logits_rel_to_max"], each rank's launches exact."""
+    import ray_tpu_torch
+    from ray_tpu_torch.serve.llm import replica_group as rg
+    on_card = dev.type == "cuda"
+    model = Transformer(cfg)
+    lens, new_tokens, prompts = serve_requests(cfg)
+    want = served["tokens"]
+    out = {}
+    pages = pages_needed(4096 + 64, 16)
+    params = init_for_serving(model, seed=0, device=dev)
+    cache = decode.init_paged_cache(cfg, pages, 16, device=dev)
+    margins, ref_rows, agree = {}, None, 0
+    for rid in prompts:
+        rows = teacher_forced(model, params, cache, prompts[rid], want[rid],
+                              dev)
+        margins[rid] = top2_margins(rows[:-1])
+        agree += int((rows[:-1].argmax(-1) == torch.tensor(want[rid]))
+                     .sum())
+        if rid == "r3":
+            ref_rows = rows
+    out["one_process_argmax_agrees"] = f"{agree} of " \
+        f"{sum(map(len, want.values()))}"
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = fwd_inputs(1, HEADS // TP_RANKS, KV_HEADS // TP_RANKS, S_MAIN,
+                         S_MAIN, HEAD_DIM, dev, gen)
+    ro, _ = flash_attention_reference(q, k, v, True)
+    out["flash_local_heads_err"] = compare(
+        flash_attention(q, k, v, causal=True), ro, TOL["flash_o"],
+        "flash fwd at a tp=2 rank's heads")
+    del q, k, v, ro
+
+    t0 = time.perf_counter()
+    ranks = rg.RankGroup(TP_RANKS, dev, {"num_gpus": 0.5} if on_card else {})
+    try:
+        if on_card and ranks.backend != "gloo":
+            raise AssertionError(f"two ranks on one card chose "
+                                 f"{ranks.backend}, not gloo")
+        loads = ranks.setup(cfg, None, 0, pages, 16, DECODE_ROWS)
+        shard = rg.rank_params(model, None, 0, TP_RANKS, 0, dev)
+        cache = decode.init_paged_cache(cfg, pages, 16, device=dev,
+                                        kv_heads=cfg.kv_heads // TP_RANKS)
+        ray_tpu_torch.get(loads, timeout=600)
+        ranks.start()
+        out["ranks_start_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_counts()
+        f0 = ranks.launches()
+        t0 = time.perf_counter()
+        rows = teacher_forced(model, shard, cache, prompts["r3"], want["r3"],
+                              dev, group=ranks.group)
+        out["teacher_forced_s"] = time.perf_counter() - t0
+        counts = [kernel_counts()] + [{k: a[k] - b[k] for k in a}
+                                      for a, b in zip(ranks.launches(), f0)]
+    finally:
+        ranks.close()
+    del shard, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = 1 + len(want["r3"])
+    for rank, c in enumerate(counts):
+        if (c["flash_fwd"] != cfg.n_layers
+                or c["rms_norm"] != (2 * cfg.n_layers + 1) * steps):
+            raise AssertionError(f"rank {rank} launched {c} in one prefill "
+                                 f"and {steps - 1} decode steps")
+    gap = (rows - ref_rows).abs().max().item()
+    scale = ref_rows.abs().max().item()
+    out.update(backend=ranks.backend, max_abs_diff=gap, max_abs_logit=scale,
+               rel_to_max=gap / scale, limit=TOL["tp_logits_rel_to_max"],
+               argmax_equal=int((rows.argmax(-1) == ref_rows.argmax(-1))
+                                .sum()),
+               rows=len(rows), launches_by_rank=counts, margins=margins)
+    log("serve tp (a): " + json.dumps({k: v for k, v in out.items()
+                                       if k != "margins"}))
+    if gap > TOL["tp_logits_rel_to_max"] * scale:
+        raise AssertionError("tp=2 logits disagree with one process's")
+    return out
+
+
+def serve_tp_phase(served: dict, dev, smi: str, llm_served: dict,
+                   cfg=None) -> dict:
+    """llama3-8b served from a replica sharded over tensor-parallel ranks
+    (`LLMEngine(mesh=...)`, `serve_llm(mesh=...)`), both ranks on the
+    card, seed-0 weights each rank makes and shards itself:
+    (a) the model (`tp_model_check`): two ranks over gloo against one
+        process, and the top-2 margin of every step of `serve()`'s five
+        requests in one process;
+    (b) `serve_llm(mesh={"dp": 1, "tp": 1})` with one `num_gpus=1`
+        replica (a one-rank nccl group) and the `kv_budget_bytes` of
+        `serve()`'s pool: `serve()`'s tokens exactly, its 1,024 pages,
+        TPOT p50 (beside `serve()`'s decode step p50 and the serve_llm
+        phase's TPOT at its depth);
+    (c) `serve_llm(mesh={"tp": 2})` with `num_gpus=0.5` a rank and (b)'s
+        page count: `serve()`'s tokens, except that a request may part
+        at a step whose one-process top-2 margin is below (a)'s measured
+        gap (each such step is printed; any other parting fails), each
+        rank's cache half of (b)'s, both ranks' launches, TPOT p50;
+    (d) after `serve.shutdown()` and `shutdown()` the card's free memory
+        is back within 1 GiB.
+    `dev` is the card; the CPU only rehearses."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve as rt_serve
+    from ray_tpu_torch._private import context
+    from ray_tpu_torch.serve.llm import serve_llm
+    on_card = dev.type == "cuda"
+    cfg = cfg or llama3_8b()
+    lens, new_tokens, prompts = serve_requests(cfg)
+    want = served["tokens"]
+    budget = TP_BUDGET_PAGES * decode.cache_page_bytes(cfg, 16)
+    out = {"card": smi, "kv_budget_bytes": budget}
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        out["a"] = tp_model_check(served, dev, cfg)
+        margins, gap = out["a"].pop("margins"), out["a"]["max_abs_diff"]
+
+        # (b) tp=1 through serve_llm: a one-rank nccl group
+        t0 = time.perf_counter()
+        handle = serve_llm(
+            name="llama3-8b-tp1", model=cfg, mesh={"dp": 1, "tp": 1},
+            num_replicas=1, kv_budget_bytes=budget, page_size=16,
+            max_batch=DECODE_ROWS,
+            ray_actor_options={"num_gpus": 1} if on_card else {},
+            device=None if on_card else "cpu")
+        await_replica(handle, context.get_ctx(), rt_serve)
+        b = drive_replica(handle, cfg, served, "serve_llm tp=1")
+        b["replica_first_answer_s"] = time.perf_counter() - t0
+        st = b["stats"]
+        if (st["tp"], st["tp_backend"]) != (1, "nccl" if on_card
+                                            else "gloo"):
+            raise AssertionError(f"tp=1 replica: {st}")
+        if (st["num_pages"], st["cache_bytes_by_rank"]) != (
+                TP_BUDGET_PAGES, [budget]):
+            raise AssertionError(f"tp=1 cache {st}, budget {budget}")
+        b["beside"] = {"serve_decode_step_ms_p50":
+                       served.get("decode_step_ms_p50"),
+                       "serve_llm_phase_tpot_ms_p50":
+                       llm_served["tpot_ms_p50"],
+                       "serve_llm_phase_layers": llm_served.get("layers")}
+        out["b"] = {k: v for k, v in b.items() if k != "tokens"}
+        log("serve tp (b): " + json.dumps(out["b"]))
+        rt_serve.shutdown()
+
+        # (c) tp=2 through serve_llm, both ranks on the card
+        t0 = time.perf_counter()
+        handle = serve_llm(
+            name="llama3-8b-tp2", model=cfg, mesh={"tp": TP_RANKS},
+            num_replicas=1, num_pages=st["num_pages"], page_size=16,
+            max_batch=DECODE_ROWS,
+            ray_actor_options={"num_gpus": 0.5} if on_card else {},
+            device=None if on_card else "cpu")
+        await_replica(handle, context.get_ctx(), rt_serve)
+        c = drive_replica(handle, cfg, served, "serve_llm tp=2",
+                          exact=False)
+        c["replica_first_answer_s"] = time.perf_counter() - t0
+        stc = c["stats"]
+        half = [budget // TP_RANKS] * TP_RANKS
+        if (stc["tp"] != TP_RANKS or stc["num_pages"] != st["num_pages"]
+                or stc["cache_bytes_by_rank"] != half):
+            raise AssertionError(f"tp=2 replica {stc}, expected "
+                                 f"{st['num_pages']} pages and {half} B")
+        if on_card and stc["tp_backend"] != "gloo":
+            raise AssertionError(f"tp=2 on one card: {stc['tp_backend']}")
+        got = c.pop("tokens")
+        parted = []
+        for rid in prompts:
+            if len(got[rid]) != len(want[rid]):
+                raise AssertionError(f"{rid}: {len(got[rid])} tokens")
+            j = next((i for i, (x, y) in enumerate(zip(got[rid], want[rid]))
+                      if x != y), None)
+            if j is None:
+                continue
+            step = {"rid": rid, "step": j, "margin": margins[rid][j],
+                    "gap": gap}
+            log(f"serve tp (c): {rid} parts from serve() at step {j}: "
+                f"one-process top-2 margin {margins[rid][j]:.4f}, (a)'s "
+                f"gap {gap:.4f}")
+            if margins[rid][j] >= gap:
+                raise AssertionError(f"tp=2 tokens part from serve()'s at "
+                                     f"{step}, not a near tie")
+            parted.append(step)
+        c["parted_near_ties"] = parted
+        c["min_margin"] = min(min(m) for m in margins.values())
+        out["c"] = c
+        log("serve tp (c): " + json.dumps(c))
+    finally:
+        try:
+            rt_serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+    out["d_not_returned_gib"] = memory_back(free0)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"serve tp: (a) max|Δ| {gap:.4f} of max|logit| "
+        f"{out['a']['max_abs_logit']:.3f}; TPOT p50 tp=1 "
+        f"{out['b']['tpot_ms_p50']:.2f} ms ({out['b']['beside']}), tp=2 "
+        f"{c['tpot_ms_p50']:.2f} ms; "
+        f"{len(parted)} near-tie partings; phase {out['phase_s']:.1f} s "
+        f"({smi})")
+    return out
+
+
+# ------------------------------------------------------------ phase 12b
+# The tune phase: the bench model cut to TUNE_LAYERS layers, an lr grid,
+# steps a trial
+TUNE_LAYERS, TUNE_LRS, TUNE_STEPS = 4, (3e-4, 1e-5, 3e-3), 4
+
+
+def tune_loop(config):
+    """The tune phase's `train_loop_per_worker` (pickled by value from
+    this script's `__main__`): the worker imports `chip_smoke` and runs
+    `tune_worker` there."""
+    import chip_smoke
+    chip_smoke.tune_worker(config)
+
+
+def tune_worker(config: dict) -> None:
+    """In a trial's worker: the cut bench model from seed 0, AdamW at the
+    trial's lr, `train()`'s batch; a report a step with the loss, the
+    first step's loss and this process's kernel launches so far."""
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.models.config import TransformerConfig
+    dev = torch.device(config["device"])
+    cfg = TransformerConfig(**config["cfg"])
+    model = Transformer(cfg)
+    params = model.init(0, device=dev)
+    opt = bench.make_optimizer(params)
+    for group in opt.param_groups:
+        group["lr"] = config["lr"]
+    batch = bench.make_batch(cfg, config["batch"], config["seq"], dev)
+    reset_counts()
+    first = None
+    for step in range(config["steps"]):
+        loss = bench.train_step(model, params, opt, batch).item()
+        first = loss if first is None else first
+        rt_train.report({"loss": loss, "first_loss": first, "step": step,
+                         "launches": kernel_counts(), "pid": os.getpid()})
+
+
+def tune_phase(dev, smi: str, cfg=None, batch: int = TRAIN_B,
+               seq: int = TRAIN_S) -> dict:
+    """A `Tuner` over a `TorchTrainer` with one `GPU: 1` worker, the bench
+    model at full width and TUNE_LAYERS layers: an lr grid of three, one
+    trial at a time, TUNE_STEPS steps a trial under ASHA (`max_t` 4,
+    `grace_period` 1, reduction factor 2). At least one trial STOPPED;
+    `get_best_result()` is the trial with the lowest last loss; every
+    trial's first loss equal to the same model's first loss in this
+    process bit for bit; every trial's worker launched all four kernels.
+    `dev` is the card; the CPU only rehearses."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig, TorchConfig,
+                                     TorchTrainer)
+    on_card = dev.type == "cuda"
+    cfg = cfg or dataclasses.replace(bench.bench_config(),
+                                     n_layers=TUNE_LAYERS)
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    model = Transformer(cfg)
+    params = model.init(0, device=dev)
+    opt = bench.make_optimizer(params)
+    first = bench.train_step(model, params, opt,
+                             bench.make_batch(cfg, batch, seq, dev)).item()
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    storage = tempfile.mkdtemp(prefix="rtt_tune_")
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        trainer = TorchTrainer(
+            tune_loop,
+            train_loop_config={"cfg": dataclasses.asdict(cfg),
+                               "device": "cuda" if on_card else "cpu",
+                               "steps": TUNE_STEPS, "batch": batch,
+                               "seq": seq, "lr": 0.0},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card),
+            backend_config=TorchConfig(
+                platform=None if on_card else "cpu"))
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            trainer, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=1,
+                scheduler=tune.ASHAScheduler(
+                    metric="loss", mode="min", max_t=TUNE_STEPS,
+                    grace_period=1, reduction_factor=2)),
+            run_config=RunConfig(name="tune_phase",
+                                 storage_path=storage)).fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    trials = [{"lr": t.config["lr"], "status": t.status,
+               "results": t.num_results, "error": t.error,
+               **{k: t.last_result.get(k) for k in
+                  ("loss", "first_loss", "launches", "pid")}}
+              for t in grid.trials]
+    out = {"card": smi, "layers": cfg.n_layers, "params": cfg.num_params(),
+           "first_loss_in_process": first, "trials": trials,
+           "fit_s": fit_s}
+    log("tune: " + json.dumps(out))
+    if grid.num_errors:
+        raise AssertionError(f"trials failed: {trials}")
+    if not any(t["status"] == "STOPPED" for t in trials):
+        raise AssertionError(f"no trial STOPPED: {trials}")
+    best = grid.get_best_result()
+    lowest = min(trials, key=lambda t: t["loss"])
+    if best.config["lr"] != lowest["lr"]:
+        raise AssertionError(f"best result lr {best.config['lr']}, lowest "
+                             f"last loss at lr {lowest['lr']}")
+    for t in trials:
+        if t["first_loss"] != first:
+            raise AssertionError(f"trial lr {t['lr']}: first loss "
+                                 f"{t['first_loss']!r}, in process "
+                                 f"{first!r}")
+        if on_card and min(t["launches"].values()) <= 0:
+            raise AssertionError(f"trial lr {t['lr']} launched "
+                                 f"{t['launches']}")
+    out["best_lr"] = best.config["lr"]
+    out["not_returned_gib"] = memory_back(free0)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"tune: {len(trials)} trials in {fit_s:.1f} s, best lr "
+        f"{out['best_lr']}, phase {out['phase_s']:.1f} s ({smi})")
     return out
 
 
@@ -4831,6 +5318,7 @@ def main() -> None:
                          torch.bfloat16)
     flash = time_flash(dev, peaks, 1, HEADS, KV_HEADS, S_MAIN)
     flash_4k = time_flash(dev, peaks, 1, HEADS, KV_HEADS, 4096)
+    flash_tp2 = time_flash(dev, peaks, 1, HEADS // 2, KV_HEADS // 2, S_MAIN)
     flash_train = time_flash(dev, peaks, TRAIN_B, TRAIN_HEADS, TRAIN_HEADS,
                              TRAIN_S)
     bwd = time_flash_bwd(dev, peaks)
@@ -4839,6 +5327,7 @@ def main() -> None:
                     ("rms_norm train", rms_train),
                     ("flash_fwd s=2048", flash),
                     ("flash_fwd s=4096", flash_4k),
+                    ("flash_fwd s=2048 tp=2 rank", flash_tp2),
                     ("flash_fwd train", flash_train),
                     ("flash_dkdv train", bwd["dkdv"]),
                     ("flash_dq train", bwd["dq"]),
@@ -4858,19 +5347,29 @@ def main() -> None:
         raise AssertionError(f"serving left {left:.2f} GiB allocated")
     ran = runtime(served)
     log("runtime: " + json.dumps(ran))
-    llm_served = serve_llm_phase(served, dev)
+    cut_serve = dataclasses.replace(llama3_8b(), n_layers=SERVE_LLM_LAYERS)
+    served_cut = serve_tokens(dev, cut_serve)
+    llm_served = serve_llm_phase(served_cut, dev, cfg=cut_serve)
     log("serve_llm: " + json.dumps(llm_served))
-    agent_served = serve_llm_agent_phase(served, dev)
+    agent_served = serve_llm_agent_phase(served_cut, dev, cfg=cut_serve)
     log("serve_llm agent: " + json.dumps(agent_served))
+    tp_served = serve_tp_phase(served, dev, smi, llm_served)
+    log("serve tp: " + json.dumps(tp_served))
+    gc.collect()
+    torch.cuda.empty_cache()
     trained = train(dev, peaks)
     log("train: " + json.dumps(trained))
     gc.collect()
     torch.cuda.empty_cache()
-    fitted = trainer_phase(trained, dev)
+    cut_train = dataclasses.replace(bench.bench_config(),
+                                    n_layers=TRAINER_LAYERS)
+    trained_cut = train_reference(
+        dev, cut_train, max(TRAINER_STEPS, ELASTIC_STEPS))
+    fitted = trainer_phase(trained_cut, dev, cfg=cut_train)
     log("trainer: " + json.dumps(fitted))
     gc.collect()
     torch.cuda.empty_cache()
-    elastic = elastic_phase(trained, dev)
+    elastic = elastic_phase(trained_cut, dev, cfg=cut_train)
     log("elastic: " + json.dumps(elastic))
     gc.collect()
     torch.cuda.empty_cache()
@@ -4880,6 +5379,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     piped = pipeline_phase(trained, dev, smi)
     log("pipeline: " + json.dumps(piped))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuned = tune_phase(dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
     rl_phase(dev, smi)
@@ -4904,7 +5406,16 @@ def main() -> None:
              "moe_in_process_6_steps": parallel["moe_in_process"]["launches"],
              "moe_trainer_6_steps": parallel["moe_trainer"]["launches"],
              "pipeline_stage0_5_steps": piped["pipeline"]["launches"][0],
-             "pipeline_stage1_5_steps": piped["pipeline"]["launches"][1]}
+             "pipeline_stage1_5_steps": piped["pipeline"]["launches"][1],
+             "serve_llm_tp1_replica": tp_served["b"]["launches"]}
+    zero = {"flash_dkdv": 0, "flash_dq": 0}
+    for rank in range(TP_RANKS):
+        paths[f"tp2_teacher_forced_rank{rank}"] = {
+            **zero, **tp_served["a"]["launches_by_rank"][rank]}
+        paths[f"serve_llm_tp2_rank{rank}"] = {
+            **zero, **tp_served["c"]["launches_by_rank"][rank]}
+    for i, trial in enumerate(tuned["trials"]):
+        paths[f"tune_trial{i}_lr{trial['lr']:g}"] = trial["launches"]
     for name in ("flash_fwd", "flash_dkdv", "flash_dq", "rms_norm"):
         if sum(p[name] for p in paths.values()) == 0:
             raise AssertionError(f"{name} never launched on a main path")
@@ -4922,6 +5433,7 @@ def main() -> None:
          "max_abs_err": flash_err, "lse_max_abs_err": lse_err,
          "tolerance": {"o": TOL["flash_o"], "lse": TOL["flash_lse"]},
          **flash, "kernel_ms": flash["ms"], "s4096": flash_4k,
+         "tp2_rank": flash_tp2,
          "train": flash_train, **resources(res, "fwd")},
         *({"name": f"flash_{kind}", "route": "cuda",
            "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",

@@ -2930,6 +2930,19 @@ class Runtime(_context.BaseContext):
             self.kill_actor(kwargs["actor_id"],
                             kwargs.get("no_restart", True))
             return True
+        # a worker's placement groups (`util/placement_group.py`; a
+        # serving replica places its tp ranks in one)
+        if op == "create_placement_group":
+            rec = self.cluster.create_pg(kwargs["bundles"],
+                                         kwargs["strategy"],
+                                         name=kwargs.get("name", ""))
+            return {"id": rec.pg_id, "bundles": rec.bundles}
+        if op == "wait_placement_group":
+            # a short wait a call: this connection's reader thread runs it
+            return self.cluster.wait_pg(kwargs["pg_id"], 0.1)
+        if op == "remove_placement_group":
+            self.cluster.remove_pg(kwargs["pg_id"])
+            return True
         raise ValueError(f"unknown state op {op}")
 
     def node_resources(self) -> dict:

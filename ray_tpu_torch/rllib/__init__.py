@@ -7,7 +7,7 @@ EnvRunnerGroup ~ EnvRunner stack, and FaultTolerantActorManager as the
 shared actor-fleet substrate, and Sebulba's inference actors, env
 runners and learner. The learners run on the card unless given
 `device="cpu"`; the env runners sample in numpy on the CPU.
-`tune_trainable` follows with ROADMAP queue 1, item 11.
+`tune_trainable` makes an algorithm config a Tune trainable.
 """
 from ray_tpu_torch.rllib.actor_manager import (CallResult,
                                                FaultTolerantActorManager,
@@ -24,6 +24,7 @@ from ray_tpu_torch.rllib.env.env_runner_group import EnvRunnerGroup
 from ray_tpu_torch.rllib.sebulba import (InferenceActor, Sebulba,
                                          SebulbaConfig, SebulbaEnvRunner,
                                          SebulbaLearner, SebulbaRunnerConfig)
+from ray_tpu_torch.rllib.tune_adapter import tune_trainable
 
 __all__ = [
     "AlgorithmConfig",
@@ -32,5 +33,5 @@ __all__ = [
     "EnvRunnerConfig", "EnvRunnerGroup", "FaultTolerantActorManager",
     "RemoteCallResults", "CallResult",
     "InferenceActor", "SebulbaEnvRunner", "SebulbaRunnerConfig",
-    "SebulbaLearner", "Sebulba", "SebulbaConfig",
+    "SebulbaLearner", "Sebulba", "SebulbaConfig", "tune_trainable",
 ]

@@ -190,7 +190,16 @@ class _Replica:
                      controller_name: str, period: float) -> None:
         import ray_tpu_torch
         controller = None
+        check = getattr(self._obj, "check_health", None)
         while not self._stop_report.wait(period):
+            if check is not None:
+                try:
+                    check()
+                except BaseException:
+                    # unhealthy (Ray Serve's `check_health` contract):
+                    # silent from now on, so the controller presumes the
+                    # replica dead, kills it and starts another
+                    return
             try:
                 if controller is None:
                     controller = ray_tpu_torch.get_actor(controller_name)

@@ -55,6 +55,13 @@ def serve_llm(name: str = "llm", model: Any = "tiny",
     identically from `seed`). `device` is the replicas' device: None is
     the card each replica sees (give it `ray_actor_options={"num_gpus":
     1}`), and `"cpu"` runs the plain PyTorch path on the CPU.
+
+    `mesh` (an axes dict, e.g. {"tp": 2}) makes each replica a group of
+    tp rank processes: the Serve replica is rank 0 and starts the other
+    ranks as actors with the same `ray_actor_options` (e.g. `{"num_gpus":
+    0.5}` puts two ranks on one card); each rank loads only its shard of
+    `weights` (or makes it from `seed`), and `kv_budget_bytes` is per
+    rank. See `LLMEngine`.
     """
     import ray_tpu_torch
     from ray_tpu_torch import serve
@@ -88,7 +95,9 @@ def serve_llm(name: str = "llm", model: Any = "tiny",
                    num_pages=num_pages, page_size=page_size,
                    max_batch=max_batch,
                    kv_budget_bytes=kv_budget_bytes, seed=seed,
-                   device=None if device is None else str(device))
+                   device=None if device is None else str(device),
+                   ray_actor_options=(dict(ray_actor_options or {})
+                                      if mesh else None))
     serve.run(app, name=name)
     return LLMHandle(name)
 

@@ -8,9 +8,12 @@ long one is still generating (iteration-level scheduling). No threads;
 it steps synchronously.
 
 The same admission, eviction, cancel, drain, stats and event dicts as
-the JAX core. What differs: a `device` (default: the card) in place of
-the mesh, direct calls in place of the jit caches, and numpy batches
-moved with `torch.as_tensor(..., device=...)`.
+the JAX core. What differs: a `device` (default: the card) and, for a
+replica over tensor-parallel ranks, the replica's `group` in place of
+the mesh (`replica_group.py`: at each model seam rank 0 broadcasts the
+step's inputs and every rank runs its shard), direct calls in place of
+the jit caches, and numpy batches moved with `torch.as_tensor(...,
+device=...)`.
 
 `LLMEngine` wraps a core with a step thread, polled token buffers,
 drain, the TTFT/TPOT histograms and the push `TokenStreamServer`.
@@ -18,6 +21,7 @@ drain, the TTFT/TPOT histograms and the push `TokenStreamServer`.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 import uuid
@@ -37,6 +41,7 @@ from ray_tpu_torch.models.transformer import Transformer
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.dispatch import resolve_device
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.serve.llm import replica_group as _rg
 from ray_tpu_torch.serve.llm.kv_cache import (PageAllocator,
                                               pages_from_budget, pages_needed)
 from ray_tpu_torch.serve.llm.stream import TokenStreamServer
@@ -82,16 +87,25 @@ class EngineCore:
 
     step() events are dicts: {rid, token, seq, done, reason, first,
     attempt}. `seq` indexes into this attempt's emitted tokens.
-    `params` must already be on `device` (default: the card).
+    `params` must already be on `device` (default: the card). With a
+    `group` (rank 0 of a replica's `ReplicaGroup`), `params` is rank 0's
+    tp shard and the cache holds its kv heads.
     """
 
     def __init__(self, config, params, device=None,
                  num_pages: int = 0, page_size: int = 16,
-                 max_batch: int = 8):
+                 max_batch: int = 8, group=None):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine "
                              f"on {self.device}")
+        self.group = group
+        tp = 1 if group is None else group.size
+        local = params["layers"][0]["wk"].shape[1] // config.head_dim
+        if local * tp != config.kv_heads:
+            raise ValueError(f"params hold {local} kv heads a rank; "
+                             f"{config.kv_heads} over tp={tp} needs "
+                             f"{config.kv_heads // tp}")
         self.config = config
         self.page_size = int(page_size)
         self.max_batch = int(max_batch)
@@ -107,7 +121,8 @@ class EngineCore:
         self.params = params
         self._cache = _dec.init_paged_cache(config, self.num_pages,
                                             self.page_size,
-                                            device=self.device)
+                                            device=self.device,
+                                            kv_heads=local)
         self._waiting: deque = deque()
         self._running: List[_Seq] = []
         self._by_rid: Dict[str, _Seq] = {}
@@ -190,23 +205,31 @@ class EngineCore:
         s_pad = _bucket(len(toks), hi=self.config.max_seq_len)
         padded = np.zeros((s_pad,), np.int32)
         padded[:len(toks)] = toks
+        table = self._page_table(seq)
+        if self.group is not None:
+            self.group.send_step(_rg.KIND_PREFILL, (padded, table),
+                                 len(toks))
         logits, self._cache = _dec.prefill(
             self.model, self.params,
             torch.as_tensor(padded, device=self.device), len(toks),
-            torch.as_tensor(self._page_table(seq), device=self.device),
-            self._cache, self.page_size)
+            torch.as_tensor(table, device=self.device),
+            self._cache, self.page_size, group=self.group)
         return int(logits.argmax())
 
     def _decode(self, tokens: np.ndarray, positions: np.ndarray,
                 pts: np.ndarray, active: np.ndarray) -> np.ndarray:
         """One decode step over the padded batch; greedy next tokens."""
         dev = self.device
+        if self.group is not None:
+            self.group.send_step(_rg.KIND_DECODE,
+                                 (tokens, positions, pts, active))
         logits, self._cache = _dec.decode_step(
             self.model, self.params, self._cache,
             torch.as_tensor(tokens, device=dev),
             torch.as_tensor(positions, device=dev),
             torch.as_tensor(pts, device=dev),
-            torch.as_tensor(active, device=dev), self.page_size)
+            torch.as_tensor(active, device=dev), self.page_size,
+            group=self.group)
         return logits.argmax(dim=-1).cpu().numpy()
 
     def _emit(self, events: List[dict], seq: _Seq, token: int) -> None:
@@ -360,50 +383,64 @@ class LLMEngine:
     (`stream.py`, subscribe at the `stream` address `generate` returns)
     or through `next_tokens` polling.
 
-    Not yet: a `mesh`. A JAX replica is one process driving its mesh's
-    chips; a tp > 1 replica here is one rank process per card (ROADMAP
-    queue 1, item 13).
+    `mesh` is an axes dict (e.g. {"dp": 1, "tp": 2}): the replica is
+    then `tp` rank processes (`replica_group.py`), this one rank 0, the
+    others actors started with `ray_actor_options` (default: a card
+    each on the card, nothing on the CPU); each rank holds its shard of
+    the weights and a cache of its kv heads, and `kv_budget_bytes` is
+    per rank. `dp` must be 1 (Serve's replicas are the dp) and every
+    other axis 1. A step that fails (a rank died, a collective passed
+    its timeout) ends every open request with the error, and
+    `check_health` raises from then on, so Serve replaces the replica.
     """
 
     def __init__(self, model="tiny", weights=None, mesh=None,
                  num_pages: int = 0, page_size: int = 0,
                  max_batch: int = 0, kv_budget_bytes: int = 0,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None,
+                 ray_actor_options: Optional[dict] = None):
         if isinstance(model, str):
             config = PRESETS[model]()
         elif isinstance(model, dict):
             config = TransformerConfig(**model)
         else:
             config = model
-        if mesh:
-            raise NotImplementedError(
-                "LLMEngine(mesh=...) needs a replica of one rank process "
-                "per card, which the parallel layer does not make: not "
-                "ported yet (ROADMAP queue 1, item 13)")
+        tp = _rg.tp_of_mesh(mesh, config)
+        if not (weights is None or isinstance(weights, Mapping)
+                or hasattr(weights, "object_id")):
+            raise TypeError(
+                f"LLMEngine takes an ObjectRef, the params dict or None as "
+                f"weights, got {type(weights).__name__}")
         device = resolve_device(device)
         page_size = int(page_size or CONFIG.llm_page_size)
         max_batch = int(max_batch or CONFIG.llm_max_batch)
         if not num_pages and kv_budget_bytes:
             num_pages = pages_from_budget(config, page_size,
-                                          kv_budget_bytes)
+                                          kv_budget_bytes,
+                                          tp_shards=tp or 1)
+        self._error: Optional[str] = None
+        self._ranks = None
         t0 = time.perf_counter()
-        if weights is None:
-            params = init_for_serving(Transformer(config), seed, device)
-        elif isinstance(weights, Mapping):
-            params = weights
-        elif hasattr(weights, "object_id"):
-            import ray_tpu_torch
-            params = _to_device(ray_tpu_torch.get(weights), device)
+        if tp is None:
+            params = self._weights(config, weights, seed, device)
         else:
-            raise TypeError(
-                f"LLMEngine takes an ObjectRef, the params dict or None as "
-                f"weights, got {type(weights).__name__}")
+            params = self._start_ranks(config, weights, seed, device, tp,
+                                       num_pages, page_size, max_batch,
+                                       ray_actor_options)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         self.weights_s = time.perf_counter() - t0
-        self.core = EngineCore(config, params, device=device,
-                               num_pages=num_pages, page_size=page_size,
-                               max_batch=max_batch)
+        try:
+            self.core = EngineCore(
+                config, params, device=device, num_pages=num_pages,
+                page_size=page_size, max_batch=max_batch,
+                group=None if self._ranks is None else self._ranks.group)
+        except BaseException:
+            if self._ranks is not None:
+                self._ranks.abort()
+            raise
+        if self._ranks is not None:
+            self._ranks.start()
         self.incarnation = uuid.uuid4().hex[:8]
         self._lock = threading.Lock()        # core + buffers
         self._cond = threading.Condition(self._lock)
@@ -422,6 +459,39 @@ class LLMEngine:
                                         daemon=True)
         self._thread.start()
 
+    @staticmethod
+    def _weights(config, weights, seed: int, device):
+        """The whole model on `device`, from `weights` or `seed`."""
+        if weights is None:
+            return init_for_serving(Transformer(config), seed, device)
+        if isinstance(weights, Mapping):
+            return weights
+        import ray_tpu_torch
+        return _to_device(ray_tpu_torch.get(weights), device)
+
+    def _start_ranks(self, config, weights, seed: int, device, tp: int,
+                     num_pages: int, page_size: int, max_batch: int,
+                     actor_options):
+        """Start ranks 1..tp-1, load every rank's shard (theirs in their
+        processes while this one loads rank 0's) and return rank 0's."""
+        import ray_tpu_torch
+        if isinstance(weights, Mapping) and tp > 1:
+            weights = ray_tpu_torch.put(weights)   # for the followers
+        self._ranks = _rg.RankGroup(tp, device, actor_options)
+        try:
+            if not num_pages:
+                num_pages = max_batch * pages_needed(config.max_seq_len,
+                                                     page_size)
+            loads = self._ranks.setup(config, weights, seed, num_pages,
+                                      page_size, max_batch)
+            params = _rg.rank_params(Transformer(config), weights, seed, tp,
+                                     0, device)
+            self._ranks.cache_bytes = ray_tpu_torch.get(loads, timeout=600)
+        except BaseException:
+            self._ranks.abort()
+            raise
+        return params
+
     # ---------------------------------------------------- step thread
     def _loop(self) -> None:
         try:
@@ -431,6 +501,8 @@ class LLMEngine:
             while not self._stop.is_set():
                 with self._lock:
                     busy = self.core.has_work
+                    if not busy and self.core.group is not None:
+                        self.core.group.keepalive()
                 if not busy:
                     self._kick.wait(0.05)
                     self._kick.clear()
@@ -446,13 +518,17 @@ class LLMEngine:
             raise
 
     def _fail(self, exc: Exception) -> None:
-        """The step raised (e.g. a CUDA error): end every open request
-        with the error, so no poller or subscriber waits on a thread
-        that is gone."""
+        """The step raised (e.g. a CUDA error, or a tp rank that died):
+        end every open request with the error, so no poller or
+        subscriber waits on a thread that is gone, and refuse new ones.
+        A replica over tp ranks frees its other ranks."""
         err = f"{type(exc).__name__}: {exc}"
         now = time.monotonic()
         events = []
+        if self._ranks is not None:
+            self._ranks.abort()
         with self._lock:
+            self._error = err
             for rid, b in self._buf.items():
                 if not b["done"]:
                     b.update(done=True, reason="error", err=err, t_done=now)
@@ -511,12 +587,19 @@ class LLMEngine:
     def ping(self):
         return "pong"
 
+    def check_health(self) -> None:
+        """Raises once a step has failed: Serve then stops counting this
+        replica as live and starts another."""
+        if self._error is not None:
+            raise RuntimeError(f"the engine's step failed: {self._error}")
+
     def generate(self, prompt, max_tokens: int = 16, stop=(),
                  rid: Optional[str] = None, attempt: int = 0) -> dict:
         """Accept one generation; tokens arrive via the push stream
         (subscribe at `stream` with `rid`) or next_tokens polling."""
         submit_t = time.monotonic()
         with self._lock:
+            self.check_health()
             rid = self.core.submit(prompt, max_tokens=max_tokens,
                                    stop=stop, rid=rid, attempt=attempt,
                                    submit_t=submit_t)
@@ -600,6 +683,16 @@ class LLMEngine:
         st["kernel_launches"] = {"flash_fwd": flash_attention.launches,
                                  "rms_norm": rms_norm.launches}
         st["weights_s"] = self.weights_s
+        st["cache_bytes"] = _rg.cache_bytes(self.core._cache)
+        if self._ranks is not None:
+            # rank 0's launches above; ranks 1.. from their processes
+            st["tp"] = self._ranks.tp
+            st["tp_backend"] = self._ranks.backend
+            st["kernel_launches_by_rank"] = (
+                [st["kernel_launches"]] + self._ranks.launches())
+            st["cache_bytes_by_rank"] = ([st["cache_bytes"]]
+                                         + self._ranks.cache_bytes)
+            st["tp_pids"] = [os.getpid()] + self._ranks.pids
         if self.core.device.type == "cuda":
             st["device_peak_bytes"] = torch.cuda.max_memory_allocated(
                 self.core.device)
@@ -619,6 +712,8 @@ class LLMEngine:
         self._kick.set()
         if threading.current_thread() is not self._thread:
             self._thread.join()
+        if self._ranks is not None:
+            self._ranks.close()
         if self._stream is not None:
             self._stream.close()
 

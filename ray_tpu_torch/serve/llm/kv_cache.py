@@ -17,9 +17,11 @@ def pages_needed(n_positions: int, page_size: int) -> int:
 
 def pages_from_budget(config, page_size: int, budget_bytes: int,
                       tp_shards: int = 1, dtype=None) -> int:
-    """Pool size a per-shard memory budget affords: the cache splits its
-    kv heads across tp shards, so doubling tp doubles the pages the
-    same per-card budget buys."""
+    """Pool size a memory budget affords. The budget is per rank: a
+    replica over `tp_shards` tensor-parallel ranks keeps each rank's kv
+    heads in that rank's cache, so every rank holds the pool's pages in
+    at most `budget_bytes`, and doubling tp doubles the pages the same
+    per-card budget buys."""
     from ray_tpu_torch.models.decode import cache_page_bytes
     per_page = cache_page_bytes(config, page_size, tp_shards=tp_shards,
                                 dtype=dtype)

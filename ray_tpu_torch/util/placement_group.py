@@ -6,9 +6,14 @@ with ready()/wait()) over the 2-phase reserve/commit in
 _private/cluster.py. STRICT_* groups that can never fit the cluster
 raise PlacementGroupUnschedulableError immediately instead of pending
 forever (VERDICT r1: options must not be silently ignored).
+
+In the port a worker (an actor) may make, wait for and remove placement
+groups too, through the head's state ops: a serving replica places its
+tensor-parallel ranks in one.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 from ray_tpu_torch._private import context as _context
@@ -45,7 +50,14 @@ class PlacementGroup:
 
     def wait(self, timeout_seconds: Optional[float] = 30.0) -> bool:
         rt = _context.get_ctx()
-        return rt.cluster.wait_pg(self.id, timeout_seconds)
+        if hasattr(rt, "cluster"):
+            return rt.cluster.wait_pg(self.id, timeout_seconds)
+        deadline = (None if timeout_seconds is None
+                    else time.monotonic() + timeout_seconds)
+        while not rt.state_op("wait_placement_group", pg_id=self.id):
+            if deadline is not None and time.monotonic() > deadline:
+                return False
+        return True
 
     def __repr__(self) -> str:
         return f"PlacementGroup(id={self.id}, bundles={self._bundles})"
@@ -63,13 +75,21 @@ def placement_group(bundles: List[Dict[str, float]],
         raise ValueError(
             f"strategy must be one of {VALID_STRATEGIES}, got {strategy!r}")
     rt = _context.get_ctx()
+    if not hasattr(rt, "cluster"):            # a worker: through the head
+        rec = rt.state_op("create_placement_group", bundles=bundles,
+                          strategy=strategy, name=name)
+        return PlacementGroup(rec["id"], rec["bundles"])
     rec = rt.cluster.create_pg(bundles, strategy, name=name)
     return PlacementGroup(rec.pg_id, rec.bundles)
 
 
 def remove_placement_group(pg: PlacementGroup) -> None:
     rt = _context.get_ctx()
-    rt.cluster.remove_pg(pg.id if isinstance(pg, PlacementGroup) else pg)
+    pg_id = pg.id if isinstance(pg, PlacementGroup) else pg
+    if not hasattr(rt, "cluster"):
+        rt.state_op("remove_placement_group", pg_id=pg_id)
+        return
+    rt.cluster.remove_pg(pg_id)
 
 
 def placement_group_table(pg: Optional[PlacementGroup] = None):

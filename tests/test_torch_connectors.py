@@ -5,9 +5,9 @@ The twin of its connector cases (pipelines, NormalizeObs, connectors in
 the env runner) and of its GAE learner-connector case, with the same
 asserts, limits and `slow` mark, on `ray_tpu_torch.rllib`, and of its
 offline cases (BC, MARWIL, CQL) and its profile case, on
-`ray_tpu_torch.util.tracing`. The Tune case follows with ROADMAP queue
-1, item 11. The runtime fixture is this file's own and shuts down at the
-module's end.
+`ray_tpu_torch.util.tracing`, and of its Tune case (a PPO lr sweep,
+with the learners on the CPU). The runtime fixture is this file's own
+and shuts down at the module's end.
 """
 import os
 
@@ -275,3 +275,39 @@ def test_learner_connector_gae_matches_in_jit(ray_cluster):
     for a, b in zip(l_jit.params.values(), l_conn.params.values()):
         assert np.allclose(a.detach().numpy(), b.detach().numpy(),
                            atol=1e-4)
+
+
+@pytest.mark.slow        # ~17s; PPO learning and Tune sweeps each
+                         # keep their own tier-1 gates (870s budget,
+                         # ROADMAP.md)
+def test_ppo_as_tune_trainable_lr_sweep(ray_cluster):
+    """Algorithms register as Tune trainables (reference Algorithm IS a
+    Trainable, algorithm.py:227): a PPO lr grid sweep runs through
+    tune.fit and reports per-trial metrics."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.rllib import PPOConfig, tune_trainable
+
+    tuner = tune.Tuner(
+        tune_trainable(PPOConfig),
+        param_space={
+            "lr": tune.grid_search([3e-4, 1e-3]),
+            "env": "CartPole-v1",
+            "num_envs_per_env_runner": 8,
+            "rollout_length": 32,
+            "num_epochs": 2,
+            "num_minibatches": 2,
+            "device": "cpu",
+            "_num_iterations": 3,
+        },
+        tune_config=tune.TuneConfig(metric="episode_return_mean",
+                                    mode="max"))
+    results = tuner.fit()
+    assert len(results) == 2
+    lrs = set()
+    for r in results:
+        assert r.metrics is not None
+        assert r.metrics["training_iteration"] == 3
+        lrs.add(r.config["lr"])
+    assert lrs == {3e-4, 1e-3}
+    best = results.get_best_result()
+    assert best.metrics["episode_return_mean"] is not None

@@ -338,8 +338,12 @@ def test_close_ends_every_thread_and_frees_the_engine():
 
 
 def test_engine_refuses_what_the_port_lacks():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        LLMEngine(model="tiny", mesh={"tp": 2}, device="cpu")
+    # a replica shards over tp only, and tp must split the kv heads
+    # (tiny has 2); both refused before any rank starts
+    with pytest.raises(ValueError, match="sp"):
+        LLMEngine(model="tiny", mesh={"sp": 2}, device="cpu")
+    with pytest.raises(ValueError, match="kv_heads"):
+        LLMEngine(model="tiny", mesh={"tp": 4}, device="cpu")
     # weights: an ObjectRef, the params dict or None, nothing else
     with pytest.raises(TypeError, match="ObjectRef"):
         LLMEngine(model="tiny", weights=object(), device="cpu")

@@ -329,7 +329,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "rllib.offline", "rllib.sebulba",
                  "rllib.sebulba.inference", "rllib.sebulba.env_runner",
                  "rllib.sebulba.learner", "rllib.sebulba.trainer",
-                 "rllib.sebulba.stats"):
+                 "rllib.sebulba.stats", "serve.llm.replica_group",
+                 "tune", "tune.search", "tune.schedulers", "tune.tuner",
+                 "rllib.tune_adapter"):
         assert "ray_tpu_torch." + name in modules, name
     imported, modules = run(
         "import sys, pkgutil, importlib\n"
