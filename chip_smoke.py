@@ -162,8 +162,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (C51 + noisy) and SAC for fixed iterations: finite losses, targets
      moving, update ms; the card's memory back after every stop(). No
      kernel of the port lies on this path either;
- 7b. (after the agent phase) serve tp: llama3-8b from a replica sharded
-     over two tensor-parallel ranks on the card (gloo, each rank its
+ 15. periphery: (a) the GPU accelerator manager counts the card (its
+     count, `torch.cuda.device_count()` and the runtime's `GPU` total are
+     1), `slice_bundles("<gen>-1")` is one bundle with `GPU: 1` and the
+     head resource, and the dashboard's `/api/cluster` reports `GPU` 1;
+     (b) the graft entry's forward (`ray_tpu_torch/graft_entry.py`, the
+     flagship model: 8 layers, d_model 512, head_dim 64, bf16) in this
+     process: its logits against the same forward in f32 on the CPU
+     through the plain versions (a stated tolerance relative to
+     max|logit|, and the share of rows whose argmax agrees), on its own
+     zero tokens and on seeded random ones, two calls the same bits,
+     exactly 8 flash forward and 17 RMSNorm launches a forward, both
+     kernels timed at its shapes; (c) a remote driver: a separate
+     process that connects with `init(address=...)` to this process's
+     head (started with `bind_host`), imports no torch, and submits a
+     `num_gpus=1` task that runs the same forward on the card: its
+     checksum and launches equal (b)'s; (d) `TorchTrainer` with
+     `ScalingConfig(topology="<gen>-1")`: one worker in the slice's
+     STRICT_SPREAD placement group (the group's bundles, strategy and
+     node, and the worker actor's group and bundle index, read from the
+     head while it runs) runs the same forward with the same checksum
+     and launches; (e) the card's memory back after
+     `shutdown()`;
+ 7b. (after the agent phase) serve tp: llama3-8b cut to its first
+     SERVE_LLM_LAYERS layers (phase 7's depth, held to its EngineCore
+     tokens) from a replica sharded over two tensor-parallel ranks on
+     the card (gloo, each rank its
      Megatron shard of the seed-0 weights and a cache of its kv heads):
      (a) this process as rank 0 and a `num_gpus=0.5` rank actor against
      one process, the 2,900-token prefill and 16 teacher-forced decode
@@ -241,6 +265,8 @@ DECODE_ROWS = 8                           # EngineCore max_batch
 # bench.py's training shape: batch, seq, heads (MHA), d_model
 TRAIN_B, TRAIN_S, TRAIN_HEADS, TRAIN_D = 2, 2048, 16, 2048
 TRAIN_STEPS, TRAIN_WARMUP = 20, 2
+# the graft entry's norm rows (2 x 256 tokens) and d_model
+GRAFT_ROWS, GRAFT_D = 512, 512
 # Tolerances, set from the arithmetic before any run:
 #  * RMSNorm bf16: both sides round the same f32 value (up to sum order
 #    and rsqrt rounding) to bf16, so they differ by at most one bf16 ulp,
@@ -279,6 +305,12 @@ TRAIN_STEPS, TRAIN_WARMUP = 20, 2
 #    of its value) the other way in a step, and each AdamW step after
 #    it carries the difference on; 2e-2 of the loss allows a few such
 #    roundings a step over the 7 steps compared.
+#  * the graft entry's logits (bf16 through 8 layers, head_dim 64)
+#    against the same weights in f32 on the CPU: every activation is
+#    rounded to bf16 (2^-8 relative) on the card only, ~20 tensors a
+#    layer; 5e-2 of max|logit| (the CPU's bf16 forward of the port is
+#    1.0e-2 from its f32 one), and the argmax of at least 90% of rows
+#    must agree (the f32 top-2 margin is ~0.14, seven times the gap).
 TOL = {
     "rms_bf16": dict(rtol=2 ** -7, atol=1e-6),
     "rms_f32": dict(rtol=1e-5, atol=1e-5),
@@ -291,6 +323,8 @@ TOL = {
     "model_grad_rel_to_max": 5e-2,
     "model_loss_abs": 1e-2,
     "trainer_loss_rel": 2e-2,
+    "graft_logits_rel_to_max": 5e-2,
+    "graft_argmax_share": 0.9,
 }
 
 
@@ -402,8 +436,9 @@ def compare(out, ref, tol, what) -> float:
 
 
 def check_rms(dev) -> float:
-    """x in bf16 and f32, w in f32 (llama3-8b serving) and bf16 (the bench
-    model trains with bf16 parameters)."""
+    """x in bf16 and f32, w in f32 (llama3-8b serving, the graft entry at
+    d 512, where the kernel runs a row a warp) and bf16 (the bench model
+    trains with bf16 parameters)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
     for dtype, tol in ((torch.bfloat16, TOL["rms_bf16"]),
@@ -411,7 +446,8 @@ def check_rms(dev) -> float:
         for rows, d, wdt in ((DECODE_ROWS, D_MODEL, torch.float32),
                              (S_MAIN, D_MODEL, torch.float32),
                              (1000, D_MODEL, torch.float32),
-                             (TRAIN_B * TRAIN_S, TRAIN_D, torch.bfloat16)):
+                             (TRAIN_B * TRAIN_S, TRAIN_D, torch.bfloat16),
+                             (GRAFT_ROWS, GRAFT_D, torch.float32)):
             x = torch.randn(rows, d, generator=gen, device=dev)
             x = (3 * x).to(dtype)
             w = (0.1 * torch.randn(d, generator=gen, device=dev)).to(wdt)
@@ -429,7 +465,8 @@ def check_rms(dev) -> float:
 
 # (b, h, kvh, sq, sk, d, causal) for the forward: the llama3-8b prefill
 # (both masks, and at a tp=2 rank's heads) and training shapes, s 4096, ragged s 1000, sq != sk under
-# each mask (top-left causal alignment); then the edges of the kernel's
+# each mask (top-left causal alignment), the graft entry's shape (head_dim
+# 64, kv heads 4, causal); then the edges of the kernel's
 # 64-row warpgroup tiles, 128-row blocks and 128-row K/V tiles, s 1 to 257
 # with both masks and head dims, the GQA group cycling through 1, 4 and 8
 FWD_EDGES = itertools.product(
@@ -443,7 +480,8 @@ FWD_CASES = [(1, HEADS, KV_HEADS, S_MAIN, S_MAIN, HEAD_DIM, True),
              (1, 8, 2, 1000, 1000, 128, True),
              (1, 8, 2, 1000, 1000, 128, False),
              (2, 8, 2, 100, 300, 128, True), (2, 8, 2, 100, 300, 128, False),
-             (2, 8, 2, 300, 100, 64, True), (2, 8, 2, 300, 100, 64, False)] + [
+             (2, 8, 2, 300, 100, 64, True), (2, 8, 2, 300, 100, 64, False),
+             (2, 8, 4, 256, 256, 64, True)] + [
     (2, 8, 8 // (1, 4, 8)[i % 3], s, s, d, causal)
     for i, (s, d, causal) in enumerate(FWD_EDGES)]
 
@@ -761,11 +799,12 @@ def time_rms(dev, peaks, rows: int, d: int = D_MODEL,
     return out
 
 
-def time_flash(dev, peaks, b: int, h: int, kvh: int, s: int) -> dict:
-    """The forward kernel, causal, head_dim 128, against the plain version
+def time_flash(dev, peaks, b: int, h: int, kvh: int, s: int,
+               d: int = HEAD_DIM) -> dict:
+    """The forward kernel, causal, head_dim `d`, against the plain version
     and SDPA on the same inputs."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    q, k, v = fwd_inputs(b, h, kvh, s, s, HEAD_DIM, dev, gen)
+    q, k, v = fwd_inputs(b, h, kvh, s, s, d, dev, gen)
     out = time_three(lambda: flash_attention(q, k, v, causal=True),
                      lambda: flash_attention_reference(q, k, v, True),
                      lambda: F.scaled_dot_product_attention(
@@ -773,13 +812,13 @@ def time_flash(dev, peaks, b: int, h: int, kvh: int, s: int) -> dict:
                      20, 5)
     # causal: the lower triangle's s(s+1)/2 pairs, QK^T and PV, 2 FLOP
     # per multiply-add, for every q head
-    ops = 2 * 2 * HEAD_DIM * b * h * s * (s + 1) / 2
-    nbytes = b * (2 * h + 2 * kvh) * s * HEAD_DIM * 2 + b * h * s * 4
+    ops = 2 * 2 * d * b * h * s * (s + 1) / 2
+    nbytes = b * (2 * h + 2 * kvh) * s * d * 2 + b * h * s * 4
     out["bound_ms"], out["bound_by"] = bound(nbytes, ops, peaks[1], peaks)
     out["tflops"] = ops / out["ms"] / 1e9
     out["bound_share"] = out["bound_ms"] / out["ms"]
-    out["shape"] = (f"q ({b}, {h}, {s}, {HEAD_DIM}), k/v ({b}, {kvh}, {s}, "
-                    f"{HEAD_DIM}) bf16, causal")
+    out["shape"] = (f"q ({b}, {h}, {s}, {d}), k/v ({b}, {kvh}, {s}, "
+                    f"{d}) bf16, causal")
     return out
 
 
@@ -1066,8 +1105,9 @@ def serve(dev) -> dict:
 
 
 # Earlier paths cut in depth to keep the script inside its time limit:
-# the serve_llm and agent phases serve llama3-8b's first SERVE_LLM_LAYERS
-# layers (the weights put and relayed shrink with them), the trainer and
+# the serve_llm, agent and tp phases serve llama3-8b's first
+# SERVE_LLM_LAYERS layers (the weights put and relayed, and the tp ranks'
+# all-reduces a step, shrink with them), the trainer and
 # elastic phases train the bench model's first TRAINER_LAYERS (their
 # checkpoints shrink with them); each is held to the same calls in this
 # process at the same depth
@@ -3142,8 +3182,15 @@ TP_RANKS, TP_BUDGET_PAGES = 2, 1024
 # adds a token may round one bf16 ulp (2^-8 relative) the other way, and
 # the difference grows through 32 layers like a random walk; 5e-2 of
 # max|logit| is the limit of the prefill check against
-# Transformer.apply, whose matmuls round in other shapes (and hold).
+# Transformer.apply, whose matmuls round in other shapes (and hold). A
+# walk through n layers is sqrt(n / 32) as long: 2.5e-2 at the
+# SERVE_LLM_LAYERS = 8 the phase runs.
 TOL["tp_logits_rel_to_max"] = 0.05
+
+
+def tp_logits_limit(n_layers: int) -> float:
+    """(a)'s limit on max|Δ| over max|logit| through `n_layers` layers."""
+    return TOL["tp_logits_rel_to_max"] * (n_layers / 32) ** 0.5
 
 
 def teacher_forced(model, params, cache, prompt, forced, dev,
@@ -3202,7 +3249,7 @@ def tp_model_check(served: dict, dev, cfg) -> dict:
     `RankGroup` with one `num_gpus=0.5` rank actor (gloo: the ranks share
     the card) runs the 2,900-token prompt's prefill and 16 decode steps
     teacher-forced the same way; max|Δ| over max|logit| within
-    TOL["tp_logits_rel_to_max"], each rank's launches exact."""
+    `tp_logits_limit(cfg.n_layers)`, each rank's launches exact."""
     import ray_tpu_torch
     from ray_tpu_torch.serve.llm import replica_group as rg
     on_card = dev.type == "cuda"
@@ -3273,13 +3320,13 @@ def tp_model_check(served: dict, dev, cfg) -> dict:
     gap = (rows - ref_rows).abs().max().item()
     scale = ref_rows.abs().max().item()
     out.update(backend=ranks.backend, max_abs_diff=gap, max_abs_logit=scale,
-               rel_to_max=gap / scale, limit=TOL["tp_logits_rel_to_max"],
+               rel_to_max=gap / scale, limit=tp_logits_limit(cfg.n_layers),
                argmax_equal=int((rows.argmax(-1) == ref_rows.argmax(-1))
                                 .sum()),
                rows=len(rows), launches_by_rank=counts, margins=margins)
     log("serve tp (a): " + json.dumps({k: v for k, v in out.items()
                                        if k != "margins"}))
-    if gap > TOL["tp_logits_rel_to_max"] * scale:
+    if gap > tp_logits_limit(cfg.n_layers) * scale:
         raise AssertionError("tp=2 logits disagree with one process's")
     return out
 
@@ -5284,6 +5331,276 @@ def rl_algos_phase(dev, smi: str, device=None) -> dict:
     log(f"rl algos: {json.dumps(out)}")
     return out
 
+# ------------------------------------------------------------ periphery
+PERIPHERY_POD = "rtt-smoke-slice"
+# the remote driver, a separate process: it connects to the head at
+# argv[1], imports no torch itself, and runs the graft entry's forward in
+# a `num_gpus=1` task on device argv[2]
+PERIPHERY_CLIENT = """
+import json, sys, time
+t0 = time.perf_counter()
+import ray_tpu_torch
+ray_tpu_torch.init(address=sys.argv[1])
+init_s = time.perf_counter() - t0
+
+def forward(device):
+    import chip_smoke
+    return chip_smoke.graft_forward(device)
+
+heavy = sorted(n for n in ("jax", "torch") if n in sys.modules)
+out = ray_tpu_torch.get(ray_tpu_torch.remote(num_gpus=1)(forward).remote(
+    sys.argv[2]), timeout=600)
+out.update(client_init_s=init_s, client_heavy_modules=heavy,
+           client_init_to_result_s=time.perf_counter() - t0,
+           client_heavy_after=sorted(n for n in ("jax", "torch")
+                                     if n in sys.modules))
+ray_tpu_torch.shutdown()
+print("RESULT " + json.dumps(out))
+"""
+
+
+def card_generation() -> str:
+    """'h100' from the card's name ('NVIDIA H100 80GB HBM3')."""
+    m = re.search(r"\b([A-Z]\d{3})\b", torch.cuda.get_device_name(0))
+    if m is None:
+        raise AssertionError(f"no generation in the card's name "
+                             f"{torch.cuda.get_device_name(0)!r}")
+    return m.group(1).lower()
+
+
+def graft_forward(device) -> dict:
+    """In any process (a task, a train worker): the graft entry's forward
+    once on `device`, summed up as the logits' checksum, the launches of
+    this process during it and where it ran."""
+    from ray_tpu_torch.graft_entry import entry
+    fn, args = entry(torch.device(device))
+    reset_counts()
+    logits = fn(*args)
+    return {"checksum": checksum(logits), "launches": kernel_counts(),
+            "shape": list(logits.shape), "pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "node": os.environ.get("RAY_TPU_NODE_ID")}
+
+
+def periphery_loop(config):
+    """The topology trainer's `train_loop_per_worker` (pickled by value
+    from this script's `__main__`): the worker imports `chip_smoke` and
+    reports `graft_forward` there."""
+    import chip_smoke
+    from ray_tpu_torch import train as rt_train
+    rt_train.report(chip_smoke.graft_forward(config["device"]))
+
+
+def http_json(port: int, path: str):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def periphery_phase(dev, smi: str, peaks) -> dict:
+    """Phase 15, the periphery (see the module docstring): the graft
+    entry's forward in process, from a remote driver's task and from a
+    topology-placed train worker, each with the same checksum and
+    launches; the accelerator manager and the dashboard count the card."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.accelerators.gpu import (
+        GPUAcceleratorManager, head_resource_name)
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+    from ray_tpu_torch.graft_entry import _flagship_config, entry
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.train.worker_group import WorkerGroup
+    from ray_tpu_torch.util.accelerators.gpu import slice_bundles
+    from ray_tpu_torch.util.placement_group import placement_group_table
+    from ray_tpu_torch.util.state import list_actors
+    t_phase = time.perf_counter()
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+
+    # (b) the forward in this process, against f32 on the CPU
+    fn, (params, tokens) = entry(dev)
+    reset_counts()
+    logits = fn(params, tokens)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    if not torch.equal(logits, fn(params, tokens)):
+        raise AssertionError("two graft entry forwards differ")
+    want = {"flash_fwd": 8, "flash_dkdv": 0, "flash_dq": 0, "rms_norm": 17}
+    if launches != want:
+        raise AssertionError(f"graft entry launches {launches}, want {want}")
+    cpu = {k: ([{n: t.cpu() for n, t in layer.items()} for layer in v]
+               if k == "layers" else v.cpu()) for k, v in params.items()}
+    f32 = Transformer(_flagship_config(dtype="float32"))
+    out["b"] = {"launches": launches, "checksum": checksum(logits),
+                "tolerance": {"rel_to_max": TOL["graft_logits_rel_to_max"],
+                              "argmax_share": TOL["graft_argmax_share"]}}
+    # the entry's zero tokens give every position one hidden state, so
+    # attention returns V whatever its scores: seeded random tokens hold
+    # the scores, the mask and the softmax to f32 too
+    rand = torch.randint(0, _flagship_config().vocab_size, tokens.shape,
+                         generator=torch.Generator().manual_seed(16))
+    reset_counts()
+    rand_logits = fn(params, rand.to(dev))
+    torch.cuda.synchronize()
+    if kernel_counts() != want:
+        raise AssertionError(f"graft entry launches {kernel_counts()} on "
+                             f"random tokens, want {want}")
+    for name, toks, got in (("zero_tokens", tokens, logits),
+                            ("random_tokens", rand, rand_logits)):
+        with torch.no_grad():
+            ref = f32.apply(cpu, toks.cpu())
+        got = got.cpu()
+        out["b"][name] = {
+            "rel_err_to_max": float((got - ref).abs().max()
+                                    / ref.abs().max()),
+            "argmax_share": float((got.argmax(-1) == ref.argmax(-1))
+                                  .float().mean()),
+            "distinct_argmax": len(set(ref.argmax(-1).flatten().tolist()))}
+    log(f"periphery (b) [{smi}]: {json.dumps(out['b'])}")
+    for name in ("zero_tokens", "random_tokens"):
+        if (out["b"][name]["rel_err_to_max"] > TOL["graft_logits_rel_to_max"]
+                or out["b"][name]["argmax_share"]
+                < TOL["graft_argmax_share"]):
+            raise AssertionError(f"graft entry logits against f32 on "
+                                 f"{name}: {out['b']}")
+    del fn, params, logits, rand_logits, cpu, got, ref
+    if dev.type == "cuda":
+        out["time"] = {"flash_fwd": time_flash(dev, peaks, 2, 8, 4, 256, 64),
+                       "rms_norm": time_rms(dev, peaks, GRAFT_ROWS,
+                                            GRAFT_D)}
+        log(f"periphery (b) time [{smi}]: {json.dumps(out['time'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) the accelerator manager and the dashboard count the card
+    topo = f"{card_generation()}-1"
+    os.environ["RAY_TPU_POD_NAME"] = PERIPHERY_POD
+    os.environ["RAY_TPU_ACCELERATOR_TYPE"] = topo
+    mgr = GPUAcceleratorManager
+    extra = mgr.get_current_node_additional_resources()
+    if extra != {PERIPHERY_POD: 1.0, head_resource_name(topo): 1.0}:
+        raise AssertionError(f"slice resources {extra}")
+    rt = ray_tpu_torch.init(num_cpus=4, bind_host="127.0.0.1",
+                            resources=extra)
+    try:
+        counted = {"manager": mgr.get_current_node_num_accelerators(),
+                   "torch": torch.cuda.device_count(),
+                   "runtime": ray_tpu_torch.cluster_resources().get("GPU")}
+        bundles = slice_bundles(topo, PERIPHERY_POD)
+        want_bundle = [{"CPU": 1.0, "GPU": 1.0, PERIPHERY_POD: 1.0,
+                        head_resource_name(topo): 1.0}]
+        port = start_dashboard(port=0)
+        try:
+            counted["dashboard"] = http_json(
+                port, "/api/cluster")["total"].get("GPU")
+        finally:
+            stop_dashboard()
+        out["a"] = {"topology": topo, "counted": counted,
+                    "bundles": bundles}
+        log(f"periphery (a): {json.dumps(out['a'])}")
+        if set(counted.values()) != {1} or bundles != want_bundle:
+            raise AssertionError(f"periphery (a): {out['a']}")
+
+        # (c) a remote driver's num_gpus=1 task
+        host, port = rt.address
+        env = dict(os.environ)
+        env.pop("RAY_TPU_TORCH_SESSION", None)   # a client is its own
+        root = os.path.dirname(os.path.abspath(this_module().__file__))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", PERIPHERY_CLIENT, f"{host}:{port}",
+             dev.type], cwd=root, env=env, capture_output=True, text=True,
+            timeout=900)
+        out["c_process_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"remote driver exited {proc.returncode}:"
+                                 f"\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-6000:]}")
+        line = next(ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("RESULT "))
+        out["c"] = json.loads(line[len("RESULT "):])
+        log(f"periphery (c): {json.dumps(out['c'])}")
+        if (out["c"]["checksum"] != out["b"]["checksum"]
+                or out["c"]["launches"] != launches
+                or out["c"]["client_heavy_modules"]
+                or out["c"]["client_heavy_after"]
+                or out["c"]["pid"] == os.getpid()):
+            raise AssertionError(f"remote driver's forward {out['c']} "
+                                 f"against this process's {out['b']}")
+
+        # (d) a topology-placed train worker
+        scaling = ScalingConfig(topology=topo, pod_name=PERIPHERY_POD)
+        out["d_bundles"] = scaling.worker_bundles()
+        out["d_strategy"] = scaling.placement_strategy
+        log(f"periphery (d) bundle: {json.dumps(out['d_bundles'])} "
+            f"{scaling.placement_strategy}")
+        # where the group really went: its placement group and the
+        # worker actors in it, read from the head once the group started
+        placed = {}
+        start = WorkerGroup.start
+
+        def recording_start(group):
+            start(group)
+            placed["group"] = placement_group_table(group._pg)
+            placed["actors"] = [
+                {k: a[k] for k in ("actor_id", "placement_group_id",
+                                   "placement_group_bundle_index")}
+                for a in list_actors()
+                if a["placement_group_id"] == group._pg.id]
+
+        WorkerGroup.start = recording_start
+        t0 = time.perf_counter()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                result = TorchTrainer(
+                    this_module().periphery_loop,
+                    train_loop_config={"device": dev.type},
+                    scaling_config=scaling,
+                    run_config=RunConfig(name="periphery",
+                                         storage_path=tmp),
+                ).fit()
+        finally:
+            WorkerGroup.start = start
+        out["d_fit_s"] = time.perf_counter() - t0
+        if result.error is not None:
+            raise AssertionError(f"topology trainer: {result.error!r}")
+        out["d"] = {k: result.metrics[k] for k in
+                    ("checksum", "launches", "pid", "visible", "node")}
+        group = placed["group"]
+        out["d_placed"] = {
+            "bundles": group["bundles"], "strategy": group["strategy"],
+            "state": group["state"], "bundle_nodes": group["bundle_nodes"],
+            "actors": placed["actors"]}
+        log(f"periphery (d): {json.dumps(out['d'])} placed "
+            f"{json.dumps(out['d_placed'])}")
+        if (out["d"]["checksum"] != out["b"]["checksum"]
+                or out["d"]["launches"] != launches
+                or scaling.num_workers != 1
+                or scaling.placement_strategy != "STRICT_SPREAD"):
+            raise AssertionError(f"topology worker's forward {out['d']} "
+                                 f"against this process's {out['b']}")
+        if (group["bundles"] != want_bundle
+                or group["strategy"] != "STRICT_SPREAD"
+                or group["bundle_nodes"] != [out["d"]["node"]]
+                or [a["placement_group_bundle_index"]
+                    for a in placed["actors"]] != [0]):
+            raise AssertionError(f"topology worker not in the slice's "
+                                 f"group: {out['d_placed']}, it ran on "
+                                 f"{out['d']['node']}")
+    finally:
+        ray_tpu_torch.shutdown()
+        for var in ("RAY_TPU_POD_NAME", "RAY_TPU_ACCELERATOR_TYPE"):
+            os.environ.pop(var, None)
+    # (e) the card's memory back
+    out["not_returned_gib"] = memory_back(free0)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"periphery [{smi}]: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def resources(res: dict, kind: str) -> dict:
     """A flash kernel's resources at head_dim 128 (the main paths'), then
     ptxas's and the card's numbers at both head dims."""
@@ -5353,7 +5670,8 @@ def main() -> None:
     log("serve_llm: " + json.dumps(llm_served))
     agent_served = serve_llm_agent_phase(served_cut, dev, cfg=cut_serve)
     log("serve_llm agent: " + json.dumps(agent_served))
-    tp_served = serve_tp_phase(served, dev, smi, llm_served)
+    tp_served = serve_tp_phase(served_cut, dev, smi, llm_served,
+                               cfg=cut_serve)
     log("serve tp: " + json.dumps(tp_served))
     gc.collect()
     torch.cuda.empty_cache()
@@ -5388,6 +5706,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     rl_algos_phase(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    periphery = periphery_phase(dev, smi, peaks)
+    log("periphery: " + json.dumps(periphery))
     # launches on each main path, each read just after that path ran
     paths = {"engine_core": served["launches"],
              "llm_engine": served["llm_engine"]["launches"],
@@ -5416,6 +5738,9 @@ def main() -> None:
             **zero, **tp_served["c"]["launches_by_rank"][rank]}
     for i, trial in enumerate(tuned["trials"]):
         paths[f"tune_trial{i}_lr{trial['lr']:g}"] = trial["launches"]
+    paths["graft_entry_forward"] = periphery["b"]["launches"]
+    paths["client_task_forward"] = periphery["c"]["launches"]
+    paths["topology_worker_forward"] = periphery["d"]["launches"]
     for name in ("flash_fwd", "flash_dkdv", "flash_dq", "rms_norm"):
         if sum(p[name] for p in paths.values()) == 0:
             raise AssertionError(f"{name} never launched on a main path")
@@ -5434,7 +5759,8 @@ def main() -> None:
          "tolerance": {"o": TOL["flash_o"], "lse": TOL["flash_lse"]},
          **flash, "kernel_ms": flash["ms"], "s4096": flash_4k,
          "tp2_rank": flash_tp2,
-         "train": flash_train, **resources(res, "fwd")},
+         "train": flash_train, "graft_entry": periphery["time"]["flash_fwd"],
+         **resources(res, "fwd")},
         *({"name": f"flash_{kind}", "route": "cuda",
            "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
            "replaces": f"ray_tpu/ops/attention.py:{line}",
@@ -5456,7 +5782,7 @@ def main() -> None:
          "max_abs_err": rms_err,
          "tolerance": {"bf16": TOL["rms_bf16"], "f32": TOL["rms_f32"]},
          **rms_pre, "kernel_ms": rms_pre["ms"], "decode": rms_dec,
-         "train": rms_train},
+         "train": rms_train, "graft_entry": periphery["time"]["rms_norm"]},
     ]
     log("check model: " + json.dumps(model_check))
     print(smi)                  # name, power limit as nvidia-smi gives them

@@ -415,6 +415,9 @@ class Controller:
                 "num_restarts": r.num_restarts,
                 "max_restarts": r.spec.max_restarts,
                 "death_cause": r.death_cause,
+                "placement_group_id": r.spec.placement_group_id,
+                "placement_group_bundle_index":
+                    r.spec.placement_group_bundle_index,
             } for aid, r in self._actors.items()]
 
     # ---- placement groups (view pushed by the ClusterTaskManager) ----

@@ -3015,10 +3015,10 @@ def init(num_cpus: Optional[float] = None, num_gpus: Optional[float] = None,
     ``GPU`` resource. With bind_host="0.0.0.0" (or env
     RAY_TPU_BIND_HOST) the listener accepts remote node agents;
     rt.address carries the (host, port) to hand to agents
-    (``python -m ray_tpu_torch._private.node_agent``). address="host:port",
-    which connects to an existing head as a remote driver (the Ray
-    Client analogue), raises NotImplementedError until util.client is
-    taken (queue 1, item 11)."""
+    (``python -m ray_tpu_torch._private.node_agent``). With
+    address="host:port" this process instead CONNECTS to an existing head
+    as a remote driver (the Ray Client analogue,
+    ray_tpu_torch.util.client)."""
     existing = _context.maybe_ctx()
     if existing is not None:
         if ignore_reinit_error:
@@ -3040,9 +3040,8 @@ def init(num_cpus: Optional[float] = None, num_gpus: Optional[float] = None,
             raise ValueError(
                 f"init(address=...) connects to an EXISTING head; "
                 f"{sorted(incompatible)} only apply when starting one")
-        raise NotImplementedError(
-            "init(address=...) connects through util.client, which the "
-            "port has not taken yet (ROADMAP.md, queue 1, item 11)")
+        from ray_tpu_torch.util.client import connect
+        return connect(address)
     rt = Runtime(num_cpus=num_cpus, num_gpus=num_gpus, resources=resources,
                  max_workers=max_workers, namespace=namespace,
                  bind_host=bind_host, port=port, labels=labels)

@@ -6,8 +6,9 @@ FailureConfig). `ScalingConfig` speaks workers x GPUs (`use_gpu`,
 `gpus_per_worker`) where the JAX package speaks hosts x chips. Its
 `mesh` (a `parallel.MeshSpec`) is stored, as the JAX package stores it:
 a training loop builds its DeviceMesh with `parallel.prepare_mesh` over
-the process group TorchBackend formed. `topology` (pod-slice placement)
-raises until `util/accelerators` is ported. `ElasticConfig` and
+the process group TorchBackend formed. `topology` (e.g. "h100-16")
+places one worker per host of a multi-host slice
+(`util/accelerators/gpu.py`). `ElasticConfig` and
 `PipelineConfig` are copies, so configs validate the same way; `fit`
 runs the elastic path, and the MPMD pipeline (train/pipeline.py) with
 `pipeline_stages > 1`.
@@ -82,8 +83,12 @@ class ScalingConfig:
     resources_per_worker: Optional[Dict[str, float]] = None
     mesh: Optional[MeshSpec] = None     # global mesh over all workers
     placement_strategy: str = "PACK"
-    # TPU pod-slice placement in the JAX package; its counterpart comes
-    # with util/accelerators (slice bundles), not ported yet
+    # Multi-host slice mode: topology (e.g. "h100-16") makes the trainer
+    # reserve the whole slice as a STRICT_SPREAD placement group (one
+    # worker per host, head bundle on rank 0; util/accelerators/gpu.py).
+    # Each worker owns all of its host's cards (GPU = cards a host), but
+    # its nccl rank binds one of them (TorchBackend: card rank % count):
+    # the loop must drive the others itself, or they stay idle.
     topology: Optional[str] = None
     pod_name: Optional[str] = None
     # Elastic mode (r14): reshape the group on node loss/gain instead
@@ -112,22 +117,36 @@ class ScalingConfig:
                 "slice preempts atomically; run elastic across "
                 "single-host node types instead)")
         if self.topology is not None:
-            raise NotImplementedError(
-                "ScalingConfig.topology (pod-slice placement) needs "
-                "util/accelerators (slice_bundles, slice_placement_group) "
-                "and the parallel layer: ROADMAP queue 1, items 5 and 11")
+            from ray_tpu_torch._private.accelerators.gpu import num_hosts
+            hosts = num_hosts(self.topology)
+            if self.num_workers not in (1, hosts):
+                raise ValueError(
+                    f"num_workers={self.num_workers} contradicts "
+                    f"topology {self.topology} ({hosts} hosts)")
+            self.num_workers = hosts
+            self.use_gpu = True
+            self.placement_strategy = "STRICT_SPREAD"
 
     def worker_resources(self) -> Dict[str, float]:
         res = dict(self.resources_per_worker or {})
         res.setdefault("CPU", 1.0)
         if self.use_gpu:
-            res.setdefault("GPU", float(self.gpus_per_worker or 1))
+            if self.topology is not None:
+                from ray_tpu_torch._private.accelerators.gpu import (
+                    cards_per_host)
+                res.setdefault("GPU", float(cards_per_host(self.topology)))
+            else:
+                res.setdefault("GPU", float(self.gpus_per_worker or 1))
         return res
 
     def worker_bundles(self) -> Optional[list]:
-        """Explicit per-rank bundles (pod-slice mode in the JAX package,
-        which `topology` refuses here): always None."""
-        return None
+        """Explicit per-rank bundles for slice mode (else None)."""
+        if self.topology is None:
+            return None
+        from ray_tpu_torch.util.accelerators.gpu import slice_bundles
+        return slice_bundles(self.topology, self.pod_name,
+                             cpus_per_host=self.worker_resources().get(
+                                 "CPU", 1.0))
 
 
 @dataclasses.dataclass

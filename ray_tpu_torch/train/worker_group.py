@@ -140,8 +140,7 @@ class WorkerGroup:
         # Group name (MPMD pipeline mode runs one group PER STAGE, so
         # each stage's placement group is distinguishable in state ops).
         self.name = name
-        # Explicit per-rank bundles (the JAX package's pod-slice mode;
-        # the port's ScalingConfig makes none yet).
+        # Explicit per-rank bundles (slice mode: ScalingConfig.topology).
         self._bundles = bundles
         if bundles is not None and len(bundles) != num_workers:
             raise ValueError(f"{len(bundles)} bundles != "

@@ -4,10 +4,10 @@
 
 Parity with the reference's cluster_utils-based suites (SURVEY.md §4.2:
 same-host multi-raylet simulation, killer-actor fault injection) and
-bundle-policy tests (§2.1 N1b/N5). The two TPU pod-slice cases
-(`test_tpu_slice_bundles_shape`,
-`test_tpu_slice_placement_group_schedules_one_worker_per_host`) wait for
-the port's `util/accelerators` (ROADMAP queue 1, item 11).
+bundle-policy tests (§2.1 N1b/N5). The twins of the two TPU pod-slice
+cases (`test_tpu_slice_bundles_shape`,
+`test_tpu_slice_placement_group_schedules_one_worker_per_host`) are in
+`tests/test_torch_accelerators.py`, on the port's GPU slices.
 `test_trainer_schedules_through_placement_group` runs `TorchTrainer`.
 """
 import time

@@ -148,8 +148,21 @@ def test_concurrent_pull_dedup_one_transfer():
     mgr = PullManager(dst, sources_fn=lambda o, p: [("src", conn)])
     s0 = _snap()
     results = []
-    # stall the transfer start so the second request reliably joins
+    # start both getters together, and hold the winner's transfer until
+    # the second getter has joined it: under load the winner could
+    # otherwise finish and seal the object before the second getter
+    # looked, which then found it local and joined nothing
     barrier = threading.Barrier(2)
+    real_handle_pull = ep.server.handle_pull
+
+    def held_handle_pull(c, msg):
+        deadline = time.monotonic() + 30
+        while (_delta(s0, "pull_dedup_hits") == 0
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        real_handle_pull(c, msg)
+
+    ep.server.handle_pull = held_handle_pull
 
     def get():
         barrier.wait()

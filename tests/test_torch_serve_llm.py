@@ -269,8 +269,9 @@ def test_engine_refuses_params_on_another_device(models):
 # ----------------------------------------------------- import hygiene
 def test_port_imports_neither_jax_nor_ray_tpu():
     """Every module of the port, and chip_smoke, imports neither JAX nor
-    the JAX package, nor gymnasium (the chip machine has none: the RL
-    env runners import it only for a gymnasium env id). The runtime's
+    the JAX package, nor gymnasium or joblib (the chip machine has
+    neither: the RL env runners import gymnasium only for a gymnasium env
+    id, `util/joblib.py` imports joblib only in `register_ray`). The runtime's
     wire carries cloudpickled closures in protobuf envelopes, as the JAX
     wire does (the chip machine has both packages); the compute modules,
     `ops/` and `models/`, import neither, which a fresh interpreter that
@@ -303,8 +304,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "importlib.import_module('chip_smoke')\n"
         "from ray_tpu_torch.serve.llm import LLMEngine\n"
         "bad = sorted(n for n in sys.modules if " + jax_or_ray_tpu
-        + "\n             or n in ('gymnasium', 'gym')"
-        + " or n.startswith(('gymnasium.', 'gym.')))\n"
+        + "\n             or n in ('gymnasium', 'gym', 'joblib')"
+        + " or n.startswith(('gymnasium.', 'gym.', 'joblib.')))\n"
         + report)
     assert imported >= 54, sorted(modules)[:200]
     for name in ("_private.config", "_private.context",
@@ -331,7 +332,18 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "rllib.sebulba.learner", "rllib.sebulba.trainer",
                  "rllib.sebulba.stats", "serve.llm.replica_group",
                  "tune", "tune.search", "tune.schedulers", "tune.tuner",
-                 "rllib.tune_adapter"):
+                 "rllib.tune_adapter", "util.client", "util.queue",
+                 "util.multiprocessing", "util.joblib",
+                 "_private.accelerators", "_private.accelerators.gpu",
+                 "util.accelerators", "util.accelerators.gpu", "workflow",
+                 "dashboard", "job_submission", "graft_entry",
+                 "examples", *(f"examples.{n}" for n in (
+                     "core_tasks_actors", "data_pipeline", "train_sft",
+                     "tune_sweep", "tune_pbt", "ppo_cartpole",
+                     "multi_agent_ppo", "serve_inference",
+                     "serve_streaming", "serve_composition",
+                     "serve_multi_app", "data_relational",
+                     "data_streaming_stages", "dag_collective"))):
         assert "ray_tpu_torch." + name in modules, name
     imported, modules = run(
         "import sys, pkgutil, importlib\n"
