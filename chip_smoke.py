@@ -2690,10 +2690,14 @@ def _double(x):
 class GpuServer:
     """The runtime phase's actor, made remote with `num_gpus=1`: in its
     own worker process it must see the card, then `serve` runs the
-    serving schedule of `serve()` through EngineCore there."""
+    serving schedule of `serve()` through EngineCore there. It notes the
+    card its process was pinned to before its first CUDA call."""
 
     def __init__(self):
         self.constructed = time.time()      # wall clock: the driver's too
+        from ray_tpu_torch._private.accelerators import gpu
+        self.pinned = os.environ.get("CUDA_VISIBLE_DEVICES")
+        self.bound_before = gpu.cuda_bound()
         if not torch.cuda.is_available():
             raise RuntimeError("the GPU actor sees no card")
         self.pid = os.getpid()
@@ -2701,7 +2705,10 @@ class GpuServer:
     def ready(self) -> dict:
         name = torch.cuda.get_device_name(0)
         return {"pid": self.pid, "device": name,
-                "constructed": self.constructed, "ready": time.time()}
+                "constructed": self.constructed, "ready": time.time(),
+                "pinned": self.pinned, "bound_before": self.bound_before,
+                "count": torch.cuda.device_count(),
+                "uuid": str(torch.cuda.get_device_properties(0).uuid)}
 
     def serve(self) -> dict:
         import chip_smoke
@@ -2738,9 +2745,14 @@ def runtime(served: dict) -> dict:
     EngineCore tokens, with the flash forward and RMSNorm launched in
     that process; a second `num_gpus=1` actor waits while the first
     holds the card and starts once it is killed; after `shutdown()` the
-    card's free memory is back within 1 GiB."""
+    card's free memory is back within 1 GiB. The runtime pins cards to
+    leases: the first actor runs in the worker of an earlier CPU-only
+    task, pinned (`CUDA_VISIBLE_DEVICES`) to the node's one card before
+    its first CUDA call, and sees exactly that card, the driver's."""
     import ray_tpu_torch
+    from ray_tpu_torch._private.accelerators.gpu import card_names
     from ray_tpu_torch._private.specs import SESSION_TAG
+    from ray_tpu_torch.util.state import list_workers
     torch.cuda.synchronize()
     free0 = torch.cuda.mem_get_info()[0]
     t0 = time.perf_counter()
@@ -2756,6 +2768,25 @@ def runtime(served: dict) -> dict:
                              timeout=120) != 42:
             raise AssertionError("CPU task round trip")
         out["cpu_task_s"] = time.perf_counter() - t0
+
+        def cpu_probe() -> dict:
+            # a CPU-only task (pickled by value: its worker imports no
+            # torch): its process, its pin, whether CUDA is up there
+            from ray_tpu_torch._private.accelerators import gpu
+            return {"pid": os.getpid(),
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "cuda_bound": gpu.cuda_bound()}
+        probe = ray_tpu_torch.get(
+            ray_tpu_torch.remote(num_gpus=0)(cpu_probe).remote(),
+            timeout=120)
+        if probe["cuda_bound"]:
+            raise AssertionError(f"a CPU-only task's worker has CUDA: "
+                                 f"{probe}")
+        wait_until(lambda: probe["pid"] in {
+            w["pid"] for w in list_workers() if w["state"] == "idle"},
+            30, "the CPU task's worker idle")
+        idle_before = {w["pid"] for w in list_workers()
+                       if w["state"] == "idle"}
         big = np.random.default_rng(0).integers(0, 256, 64 << 20,
                                                 dtype=np.uint8)
         t0 = time.perf_counter()
@@ -2779,6 +2810,23 @@ def runtime(served: dict) -> dict:
         out["actor_constructor_to_ready_s"] = info["ready"] - info["constructed"]
         if info["pid"] == os.getpid():
             raise AssertionError("the GPU actor runs in the driver")
+        card0 = card_names(1)[0]
+        out["pin"] = {"cpu_task": probe, "idle_before": sorted(idle_before),
+                      "actor_pid": info["pid"],
+                      "actor_pinned": info["pinned"],
+                      "actor_bound_before": info["bound_before"],
+                      "actor_count": info["count"],
+                      "same_uuid": info["uuid"] == str(
+                          torch.cuda.get_device_properties(0).uuid)}
+        log(f"runtime pin: {json.dumps(out['pin'])}")
+        if (info["pid"] not in idle_before or info["pinned"] != card0
+                or info["bound_before"] or info["count"] != 1
+                or not out["pin"]["same_uuid"]):
+            raise AssertionError(
+                f"the GPU actor (pid {info['pid']}) was not pinned to card "
+                f"{card0!r} before its first CUDA call in a worker that "
+                f"ran only CPU tasks ({sorted(idle_before)}): "
+                f"{out['pin']}")
         got = ray_tpu_torch.get(first.serve.remote(), timeout=900)
         out["held_gib"] = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 30
         log(f"runtime: actor start {out['actor_start_s']:.2f} s, weights "
@@ -2923,7 +2971,7 @@ def drive_replica(handle, cfg, served: dict, what: str,
         out.update(launches_by_rank=by_rank, tokens=tokens,
                    stats={k: after[k] for k in (
                        "tp", "tp_backend", "num_pages", "cache_bytes_by_rank",
-                       "weights_s")})
+                       "weights_s", "tp_cards")})
     return out
 
 
@@ -3355,6 +3403,7 @@ def serve_tp_phase(served: dict, dev, smi: str, llm_served: dict,
     import ray_tpu_torch
     from ray_tpu_torch import serve as rt_serve
     from ray_tpu_torch._private import context
+    from ray_tpu_torch._private.accelerators.gpu import card_names
     from ray_tpu_torch.serve.llm import serve_llm
     on_card = dev.type == "cuda"
     cfg = cfg or llama3_8b()
@@ -3417,6 +3466,13 @@ def serve_tp_phase(served: dict, dev, smi: str, llm_served: dict,
                                  f"{st['num_pages']} pages and {half} B")
         if on_card and stc["tp_backend"] != "gloo":
             raise AssertionError(f"tp=2 on one card: {stc['tp_backend']}")
+        # the runtime packs the two half-card leases onto one card and
+        # pins both ranks' processes to it
+        c["tp_cards"] = stc["tp_cards"]
+        if on_card and (len(stc["tp_cards"]) != TP_RANKS
+                        or set(stc["tp_cards"]) != {card_names(1)[0]}):
+            raise AssertionError(f"tp=2 ranks of num_gpus=0.5 pinned to "
+                                 f"{stc['tp_cards']}, not to the one card")
         got = c.pop("tokens")
         parted = []
         for rid in prompts:
@@ -5388,7 +5444,11 @@ def periphery_loop(config):
     reports `graft_forward` there."""
     import chip_smoke
     from ray_tpu_torch import train as rt_train
-    rt_train.report(chip_smoke.graft_forward(config["device"]))
+    ctx = rt_train.get_context()
+    rt_train.report({**chip_smoke.graft_forward(config["device"]),
+                     "world": ctx.get_world_size(),
+                     "local_rank": ctx.get_local_rank(),
+                     "local_world": ctx.get_local_world_size()})
 
 
 def http_json(port: int, path: str):
@@ -5405,7 +5465,7 @@ def periphery_phase(dev, smi: str, peaks) -> dict:
     launches; the accelerator manager and the dashboard count the card."""
     import ray_tpu_torch
     from ray_tpu_torch._private.accelerators.gpu import (
-        GPUAcceleratorManager, head_resource_name)
+        GPUAcceleratorManager, card_names, head_resource_name)
     from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
     from ray_tpu_torch.graft_entry import _flagship_config, entry
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
@@ -5568,7 +5628,8 @@ def periphery_phase(dev, smi: str, peaks) -> dict:
         if result.error is not None:
             raise AssertionError(f"topology trainer: {result.error!r}")
         out["d"] = {k: result.metrics[k] for k in
-                    ("checksum", "launches", "pid", "visible", "node")}
+                    ("checksum", "launches", "pid", "visible", "node",
+                     "world", "local_rank", "local_world")}
         group = placed["group"]
         out["d_placed"] = {
             "bundles": group["bundles"], "strategy": group["strategy"],
@@ -5582,6 +5643,13 @@ def periphery_phase(dev, smi: str, peaks) -> dict:
                 or scaling.placement_strategy != "STRICT_SPREAD"):
             raise AssertionError(f"topology worker's forward {out['d']} "
                                  f"against this process's {out['b']}")
+        # one card a host: one rank, pinned to that card
+        if ((out["d"]["world"], out["d"]["local_rank"],
+             out["d"]["local_world"]) != (1, 0, 1)
+                or scaling.ranks_per_worker() != 1
+                or out["d"]["visible"] != card_names(1)[0]):
+            raise AssertionError(f"topology worker's ranks or pin "
+                                 f"{out['d']}")
         if (group["bundles"] != want_bundle
                 or group["strategy"] != "STRICT_SPREAD"
                 or group["bundle_nodes"] != [out["d"]["node"]]

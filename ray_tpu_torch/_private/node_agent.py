@@ -2,7 +2,10 @@
 
 A copy of `ray_tpu/_private/node_agent.py`. The node publishes a `GPU`
 resource (`--num-gpus`, else `detect_num_gpus()`) where the JAX agent
-publishes `TPU`; its shm segments are the port's `rtt_<tag>_...`.
+publishes `TPU`, and its scheduler leases those cards by name (cards
+0..n-1, as the agent's own `CUDA_VISIBLE_DEVICES` names them), pinning
+each GPU lease's worker to its cards; its shm segments are the port's
+`rtt_<tag>_...`.
 
 The raylet-equivalent process (reference src/ray/raylet/main.cc): it
 registers its resources with the head (reference
@@ -1474,7 +1477,8 @@ class NodeAgent:
             pass                       # actor keeps its resources
         else:
             fin_spec = self.scheduler.task_finished(
-                worker_id, msg.get("task_id"))
+                worker_id, msg.get("task_id"),
+                cuda_bound=msg.get("cuda_bound"))
         ctrl = {k: v for k, v in msg.items()
                 if k not in ("results", "rid", "type")}
         entry = {"worker_id": worker_id, "inline": inline,

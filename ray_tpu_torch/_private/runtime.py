@@ -1194,7 +1194,8 @@ class Runtime(_context.BaseContext):
             self.controller.record_task_event(task_id, msg.get("name", ""),
                                               state, worker_id=worker_id)
             return
-        spec = (wsched.task_finished(worker_id, task_id)
+        spec = (wsched.task_finished(worker_id, task_id,
+                                     cuda_bound=msg.get("cuda_bound"))
                 if wsched is not None else None)
         if spec is not None:
             self._unpin(spec.pinned_refs)

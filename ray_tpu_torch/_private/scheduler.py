@@ -12,9 +12,16 @@ Parity map (reference src/ray/raylet/):
   applied between same-env tasks).
 - blocked-worker resource release mirrors the reference's behavior where a
   worker blocked in `ray.get` releases its CPU so the node can oversubscribe
-  (avoids the classic nested-task deadlock).
+  (avoids the classic nested-task deadlock); its GPU cards stay with it,
+  since its process stays pinned to them.
 - resource accounting -> ClusterResourceScheduler fixed-point math
   (common/scheduling/) simplified to float math on dicts.
+- GPU leases hold named cards (reference GPU instance ids,
+  cluster_resource_data.h): the node's `CardPool`, or a bundle's carved
+  out of it, gives each charge its cards, the TASK/ACTOR_CREATE frame
+  carries them as `cards`, and the worker pins `CUDA_VISIBLE_DEVICES`
+  to them. A worker that has initialised CUDA (it reports `cuda_bound`
+  on its completions) takes only leases of the cards it is bound to.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ from typing import Callable, Optional
 from ray_tpu_torch._private import metrics_plane as _mp
 from ray_tpu_torch._private import protocol
 from ray_tpu_torch._private import tracing_plane as _tp
+from ray_tpu_torch._private.accelerators.gpu import (CardPool, Cards,
+                                                     card_names, sub_cards)
 from ray_tpu_torch._private.runtime_env import has_container
 from ray_tpu_torch._private.specs import ActorSpec, ActorTaskSpec, TaskSpec
 
@@ -75,6 +84,12 @@ class WorkerRec:
     # spawned inside a container image: permanently bound to that env —
     # only exact-hash tasks may use it, and its hash never changes
     container: bool = False
+    # cards of each GPU-holding entry of task_res, and of `acquired`
+    task_cards: "dict[str, Cards]" = field(default_factory=dict)
+    actor_cards: Optional[Cards] = None
+    # the CUDA_VISIBLE_DEVICES the process had when it initialised CUDA
+    # ("*" when it had none): it takes only GPU leases of exactly these
+    bound_cards: Optional[str] = None
 
 
 def _node_memory_fraction() -> float:
@@ -163,6 +178,8 @@ class Scheduler:
         self._cluster = cluster
         self.total = dict(node_resources)
         self.avail = dict(node_resources)
+        self._cards = CardPool.of_node(node_resources.get("GPU", 0.0))
+        self._card_names = card_names(len(self._cards.free))
         self._addr = listen_addr
         self._max_workers = (max_workers or _CFG.worker_pool_max
                              or max(int(node_resources.get("CPU", 4)) * 2,
@@ -205,13 +222,20 @@ class Scheduler:
     # ---- placement-group bundle ledgers ----
     def reserve_bundle(self, pg_id: str, index: int,
                        resources: dict[str, float]) -> bool:
-        """Phase-1 reserve: carve the bundle out of the node free pool."""
+        """Phase-1 reserve: carve the bundle, and its cards, out of the
+        node free pool."""
         with self._cv:
             if not fits(self.avail, resources):
                 return False
-            acquire(self.avail, resources)
+            cards = None
+            if resources.get("GPU"):
+                cards = self._cards.choose(resources["GPU"])
+                if cards is None:
+                    return False
+            self._charge(None, resources, cards)
             self._bundles[(pg_id, index)] = {
-                "total": dict(resources), "avail": dict(resources)}
+                "total": dict(resources), "avail": dict(resources),
+                "cards": CardPool(dict(cards or ()))}
             return True
 
     def release_bundle(self, pg_id: str, index: int) -> None:
@@ -221,7 +245,8 @@ class Scheduler:
         with self._cv:
             led = self._bundles.pop((pg_id, index), None)
             if led is not None:
-                release(self.avail, led["avail"])
+                self._refund(None, led["avail"],
+                             tuple(led["cards"].free.items()))
                 if self._running and self._pending:
                     self._try_dispatch_locked(self._INLINE_SCAN_LIMIT)
             self._cv.notify_all()
@@ -372,12 +397,13 @@ class Scheduler:
             if rec.state == STARTING:
                 self._spawning = max(0, self._spawning - 1)
             tasks, actor_id = list(rec.tasks.values()), rec.actor_id
-            if rec.blocked_depth == 0:
-                self._release_worker_res_locked(rec)
+            self._release_worker_res_locked(rec)
             rec.state = DEAD
             rec.tasks.clear()
             rec.task_res.clear()
+            rec.task_cards.clear()
             rec.acquired = {}
+            rec.actor_cards = None
             rec.pg_key = None
             self._cv.notify_all()
             return tasks, actor_id
@@ -390,6 +416,29 @@ class Scheduler:
                 return led["avail"]
         return self.avail
 
+    def _cards_for_key(self, pg_key) -> CardPool:
+        """The card pool beside `_ledger_for_key(pg_key)`: a released
+        bundle's cards went back to the node's."""
+        if pg_key is not None:
+            led = self._bundles.get(pg_key)
+            if led is not None:
+                return led["cards"]
+        return self._cards
+
+    def _charge(self, pg_key, need: dict[str, float],
+                cards: Optional[Cards]) -> None:
+        acquire(self._ledger_for_key(pg_key), need)
+        self._cards_for_key(pg_key).charge(cards)
+
+    def _refund(self, pg_key, got: dict[str, float],
+                cards: Optional[Cards]) -> None:
+        release(self._ledger_for_key(pg_key), got)
+        self._cards_for_key(pg_key).refund(cards)
+
+    def _lease_str(self, cards: Cards) -> str:
+        """A lease's cards as `CUDA_VISIBLE_DEVICES` names them."""
+        return ",".join(self._card_names[i] for i, _ in cards)
+
     def _promote_next_charge_locked(self, rec: WorkerRec) -> None:
         """Lease handoff: after a CHARGED entry leaves rec.task_res
         (completion or steal-back), charge the oldest uncharged
@@ -399,24 +448,40 @@ class Scheduler:
         re-acquires marked entries."""
         for tid, (need, pg_key, charged) in rec.task_res.items():
             if not charged:
-                if rec.blocked_depth == 0:
-                    acquire(self._ledger_for_key(pg_key), need)
+                self._settle_locked(rec, pg_key, need,
+                                    rec.task_cards.get(tid), charge=True)
                 rec.task_res[tid] = (need, pg_key, True)
                 break
 
-    def _release_worker_res_locked(self, rec: WorkerRec) -> None:
-        if rec.acquired:
-            release(self._ledger(rec), rec.acquired)
-        for need, pg_key, charged in rec.task_res.values():
-            if charged:
-                release(self._ledger_for_key(pg_key), need)
+    def _settle_locked(self, rec: WorkerRec, pg_key, need: dict,
+                       cards: Optional[Cards], charge: bool) -> None:
+        """Charge or refund one of rec's entries as its blocked state has
+        it: a blocked worker gave back all but its cards (worker_blocked),
+        which stay with the process pinned to them."""
+        if rec.blocked_depth:
+            need = {"GPU": need["GPU"]} if need.get("GPU") else {}
+        (self._charge if charge else self._refund)(pg_key, need, cards)
 
-    def _acquire_worker_res_locked(self, rec: WorkerRec) -> None:
+    def _release_worker_res_locked(self, rec: WorkerRec) -> None:
+        """Give back everything the worker holds (its death)."""
         if rec.acquired:
-            acquire(self._ledger(rec), rec.acquired)
-        for need, pg_key, charged in rec.task_res.values():
+            self._settle_locked(rec, rec.pg_key, rec.acquired,
+                                rec.actor_cards, charge=False)
+        for tid, (need, pg_key, charged) in rec.task_res.items():
             if charged:
-                acquire(self._ledger_for_key(pg_key), need)
+                self._settle_locked(rec, pg_key, need,
+                                    rec.task_cards.get(tid), charge=False)
+
+    def _blocked_part_locked(self, rec: WorkerRec, charge: bool) -> None:
+        """Give back (or take again) what a worker blocked in `get`
+        frees: all it holds but its cards."""
+        move = acquire if charge else release
+        entries = [(rec.pg_key, rec.acquired)] if rec.acquired else []
+        entries += [(pg_key, need) for need, pg_key, charged
+                    in rec.task_res.values() if charged]
+        for pg_key, need in entries:
+            move(self._ledger_for_key(pg_key),
+                 {k: v for k, v in need.items() if k != "GPU"})
 
     def heartbeat_snapshot(self) -> dict:
         """Consistent copies of the ledgers a node heartbeat reports —
@@ -524,7 +589,7 @@ class Scheduler:
                 return
             rec.blocked_depth += 1
             if rec.blocked_depth == 1 and (rec.acquired or rec.task_res):
-                self._release_worker_res_locked(rec)
+                self._blocked_part_locked(rec, charge=False)
                 # freed resources: start queued work immediately
                 if self._running and self._pending:
                     self._try_dispatch_locked(self._INLINE_SCAN_LIMIT)
@@ -552,14 +617,15 @@ class Scheduler:
             return None
         spec = rec.tasks.pop(task_id, None)
         need_pg = rec.task_res.pop(task_id, None)
+        cards = rec.task_cards.pop(task_id, None)
         if spec is None:
             return None
         if need_pg is not None and need_pg[2]:
-            if rec.blocked_depth == 0:
-                # the worker unblocked between steal and reply, so its
-                # charges were re-acquired — release this one
-                # (uncharged pipelined tasks never held a share)
-                release(self._ledger_for_key(need_pg[1]), need_pg[0])
+            # what this entry still holds (all of it once the worker
+            # unblocked between steal and reply; uncharged pipelined
+            # tasks never held a share)
+            self._settle_locked(rec, need_pg[1], need_pg[0], cards,
+                                charge=False)
             # a charged entry left the chain: hand its share to the
             # next queued task, or the rest of the pipeline would run
             # permanently uncharged
@@ -708,22 +774,29 @@ class Scheduler:
                     and (rec.acquired or rec.task_res)):
                 # Re-acquire (may oversubscribe transiently, as the reference
                 # raylet does when a blocked worker resumes).
-                self._acquire_worker_res_locked(rec)
+                self._blocked_part_locked(rec, charge=True)
 
     # ---- completion ----
     def task_finished(self, worker_id: str,
-                      task_id: Optional[str] = None) -> Optional[TaskSpec]:
+                      task_id: Optional[str] = None,
+                      cuda_bound: Optional[str] = None
+                      ) -> Optional[TaskSpec]:
+        """A task's completion; `cuda_bound` is the worker's report that
+        its process has initialised CUDA on those cards."""
         with self._cv:
             rec = self._workers.get(worker_id)
             if rec is None:
                 return None
+            if cuda_bound is not None:
+                rec.bound_cards = cuda_bound
             if task_id is None and rec.tasks:   # legacy callers: FIFO
                 task_id = next(iter(rec.tasks))
             task = rec.tasks.pop(task_id, None) if task_id else None
             need_pg = rec.task_res.pop(task_id, None) if task_id else None
+            cards = rec.task_cards.pop(task_id, None) if task_id else None
             if need_pg is not None and need_pg[2]:
-                if rec.blocked_depth == 0:
-                    release(self._ledger_for_key(need_pg[1]), need_pg[0])
+                self._settle_locked(rec, need_pg[1], need_pg[0], cards,
+                                    charge=False)
                 self._promote_next_charge_locked(rec)
             if rec.state == BUSY and not rec.tasks:
                 rec.state = IDLE
@@ -783,14 +856,16 @@ class Scheduler:
                 pass
         return k
 
-    def _pick_worker(self, spec=None) -> Optional[WorkerRec]:
+    def _pick_worker(self, spec=None,
+                     lease: Optional[str] = None) -> Optional[WorkerRec]:
         """Idle worker, preferring one whose last applied runtime env
         matches the spec's (runtime-env-keyed reuse). Pipelining onto a
         BUSY worker is the dispatch sweep's job (_pick_piggyback): it
         rides the worker's lease uncharged, so a worker never holds
         more than one resource charge — keeping spare capacity visible
         to idle/new workers instead of concentrating charges on a few
-        pipelines."""
+        pipelines. A GPU lease (`lease`: its cards) skips workers bound
+        to other cards."""
         want = "" if spec is None else self._spec_env_hash(spec)
         # container tasks can only run in a worker SPAWNED inside the
         # image (exact env-hash match); plain workers can't adopt one
@@ -802,12 +877,50 @@ class Scheduler:
                 continue
             if rec.container and rec.env_hash != want:
                 continue    # image-bound: invisible to other tasks
+            if (lease is not None and rec.bound_cards is not None
+                    and rec.bound_cards != lease):
+                continue    # its process sees other cards for good
             if rec.state == IDLE:
                 if rec.env_hash == want:
                     return rec
                 if fallback is None and not exact_only:
                     fallback = rec
         return fallback
+
+    def _gpu_lease_locked(self, spec, amount: float, pg_key):
+        """(cards, idle worker or None) for a lease of `amount` GPUs out
+        of `pg_key`'s pool, or (None, None) when no cards hold it. An
+        idle worker bound to cards the pool can give again comes first:
+        it keeps its CUDA context."""
+        pool = self._cards_for_key(pg_key)
+        index = {n: i for i, n in enumerate(self._card_names)}
+        want = self._spec_env_hash(spec)
+        for rec in self._workers.values():
+            if (rec.conn is None or rec.state != IDLE
+                    or rec.bound_cards is None
+                    or (rec.container and rec.env_hash != want)):
+                continue
+            ids = [index.get(n) for n in rec.bound_cards.split(",")]
+            if None in ids:
+                continue
+            cards = pool.choose(amount, only=ids)
+            if cards is not None:
+                return cards, rec
+        cards = pool.choose(amount)
+        if cards is None:
+            return None, None
+        return cards, self._pick_worker(spec, self._lease_str(cards))
+
+    def _evict_bound_idle_locked(self, lease: str) -> bool:
+        """Stop one idle worker bound to cards other than `lease`'s, so
+        a full pool can spawn a worker the lease can run on."""
+        for rec in self._workers.values():
+            if (rec.state == IDLE and rec.bound_cards is not None
+                    and rec.bound_cards != lease):
+                rec.state = DEAD
+                self.kill_worker(rec.worker_id)
+                return True
+        return False
 
     def _refillable_locked(self) -> set:
         """Workers a dispatch sweep may pipeline onto: non-BUSY, or
@@ -822,7 +935,7 @@ class Scheduler:
                 if rec.state != BUSY or len(rec.tasks) <= floor}
 
     def _pick_piggyback(self, spec, need: dict[str, float],
-                        pg_key, eligible: set) -> Optional[WorkerRec]:
+                        pg_key, eligible: set):
         """Saturation-path pipelining (reference worker-lease model):
         when the free pool cannot cover `need`, a normal task may still
         queue FIFO on a BUSY same-env worker, riding that worker's
@@ -831,32 +944,43 @@ class Scheduler:
         because of the dispatch-time chain condition: the task's need
         fits inside its immediate predecessor's on the same ledger, so
         the predecessor's release always covers the successor's
-        acquire."""
+        acquire. Returns (worker, cards) or (None, None): a GPU task
+        rides only a worker whose last lease holds the same cards, and
+        takes its share of them."""
         if isinstance(spec, ActorSpec):
-            return None
+            return None, None
         if getattr(spec, "placement_group_id", None):
             # PG tasks keep queue-or-fail semantics: pipelining one
             # behind a bundle's occupant would dodge the pending-queue
             # sweep that fails it fast on remove_placement_group, and
             # its lease hand-off would straddle a bundle ledger that
             # can be torn down mid-chain.
-            return None
+            return None, None
         depth = _CFG.worker_pipeline_depth
         if depth <= 1:
-            return None
+            return None, None
         want = self._spec_env_hash(spec)
+        gpu = need.get("GPU", 0.0)
         for rec in self._workers.values():
             if (rec.conn is None or rec.state != BUSY
                     or rec.worker_id not in eligible
                     or rec.blocked_depth > 0 or rec.env_hash != want
                     or len(rec.tasks) >= depth or not rec.task_res):
                 continue
-            last_need, last_pg, _ = next(reversed(rec.task_res.values()))
+            last_tid = next(reversed(rec.task_res))
+            last_need, last_pg, _ = rec.task_res[last_tid]
             if last_pg != pg_key:
                 continue            # predecessor charges another ledger
-            if all(last_need.get(k, 0.0) >= v for k, v in need.items()):
-                return rec
-        return None
+            if not all(last_need.get(k, 0.0) >= v for k, v in need.items()):
+                continue
+            if not gpu:
+                return rec, None
+            last = rec.task_cards.get(last_tid)
+            cards = sub_cards(last, gpu)
+            if cards is not None and [i for i, _ in cards] == [
+                    i for i, _ in last]:
+                return rec, cards
+        return None, None
 
     def _alive_count(self) -> int:
         return sum(1 for r in self._workers.values() if r.state != DEAD)
@@ -1105,8 +1229,11 @@ class Scheduler:
             # cancel_pending may have removed a later snapshot entry.
             if id(spec) not in self._queued_at:
                 continue
-            if fits(self.avail, self._effective_need(spec)):
-                continue
+            need = self._effective_need(spec)
+            if fits(self.avail, need) and (
+                    not need.get("GPU")
+                    or self._cards.choose(need["GPU"]) is not None):
+                continue              # room here (whole cards included)
             t0 = self._queued_at.get(id(spec))
             if t0 is None or now - t0 < _CFG.spill_delay_s:
                 continue
@@ -1256,29 +1383,39 @@ class Scheduler:
             pool = (self._bundles[pg_key]["avail"] if pg_key is not None
                     else self.avail)
             charged = True
-            if not fits(pool, need):
+            cards = None
+            worker = None
+            room = fits(pool, need)
+            if room and need.get("GPU"):
+                cards, worker = self._gpu_lease_locked(
+                    spec, need["GPU"], pg_key)
+                room = cards is not None
+            if not room:
                 # Saturated: the spec may still pipeline onto a BUSY
                 # worker's existing grant (uncharged until the task
                 # ahead of it completes) — reference worker-lease
                 # pipelining. This is what keeps per-worker bursts >1
                 # task deep, which the wire coalescing turns into
                 # multi-spec TASK frames and paired TASK_DONEs.
-                worker = self._pick_piggyback(spec, need, pg_key, refillable)
+                worker, cards = self._pick_piggyback(spec, need, pg_key,
+                                                     refillable)
                 if worker is None:
                     if mkey is not None:
                         misses.add(mkey)
                     continue
                 charged = False
             else:
-                worker = self._pick_worker(spec)
+                if cards is None:
+                    worker = self._pick_worker(spec)
                 if worker is None:
                     # no idle worker: pipeline onto a busy one rather
                     # than stalling the sweep on a spawn round-trip;
                     # spawning still happens below when even piggyback
                     # has no room, growing the pool toward max_workers
-                    worker = self._pick_piggyback(spec, need, pg_key, refillable)
-                    if worker is not None:
-                        charged = False
+                    ride, ride_cards = self._pick_piggyback(
+                        spec, need, pg_key, refillable)
+                    if ride is not None:
+                        worker, cards, charged = ride, ride_cards, False
             if worker is None:
                 blocked = sum(1 for r in self._workers.values()
                               if r.blocked_depth > 0
@@ -1291,6 +1428,11 @@ class Scheduler:
                 # task/actor dispatch permanently.
                 pool_count = sum(1 for r in self._workers.values()
                                  if r.state not in (DEAD, ACTOR))
+                if (cards is not None
+                        and pool_count - blocked >= self._max_workers
+                        and self._evict_bound_idle_locked(
+                            self._lease_str(cards))):
+                    pool_count -= 1
                 # Spawn only for unmet demand: never more in-flight spawns
                 # than pending work items (raylet WorkerPool prestart logic,
                 # worker_pool.cc PrestartWorkers, is demand-capped the same
@@ -1346,23 +1488,29 @@ class Scheduler:
             self._demand_sub(spec)
             if charged:
                 acquire(pool, need)
+                self._cards_for_key(pg_key).charge(cards)
             if not worker.container:     # image-bound hash is immutable
                 worker.env_hash = self._spec_env_hash(spec)
             if isinstance(spec, ActorSpec):
                 worker.acquired = need
+                worker.actor_cards = cards
                 worker.pg_key = pg_key
                 worker.state = ACTOR
                 worker.actor_id = spec.actor_id
                 self._rt.on_actor_dispatched(spec, worker.worker_id)
-                outbox.append((worker.conn,
-                               {"type": protocol.ACTOR_CREATE,
-                                "spec": spec}))
+                msg = {"type": protocol.ACTOR_CREATE, "spec": spec}
+                if cards:
+                    msg["cards"] = self._lease_str(cards)
+                outbox.append((worker.conn, msg))
             else:
                 worker.state = BUSY
                 worker.tasks[spec.task_id] = spec
                 worker.task_res[spec.task_id] = (need, pg_key, charged)
                 self._rt.on_task_dispatched(spec, worker.worker_id)
                 msg = {"type": protocol.TASK, "spec": spec}
+                if cards:
+                    worker.task_cards[spec.task_id] = cards
+                    msg["cards"] = self._lease_str(cards)
                 # getattr: a spec pickled by a pre-r9 peer has no
                 # trace fields (dataclasses pickle via __dict__)
                 if _tp.enabled() and getattr(spec, "trace_id", 0):
@@ -1539,6 +1687,7 @@ class Scheduler:
             self._pending_demand.clear()
             self._bundles.clear()
             self.avail = dict(self.total)
+            self._cards = CardPool.of_node(self.total.get("GPU", 0.0))
             self._cv.notify_all()
         doomed_oids: list = []
         for rec in workers:

@@ -29,6 +29,7 @@ from ray_tpu_torch._private import context as _context
 from ray_tpu_torch._private import metrics_plane as _mp
 from ray_tpu_torch._private import protocol
 from ray_tpu_torch._private import tracing_plane as _tp
+from ray_tpu_torch._private.accelerators import gpu as _gpu
 from ray_tpu_torch._private.object_store import StoredObject, deserialize, serialize
 from ray_tpu_torch._private.refs import ObjectRef
 from ray_tpu_torch._private.specs import (ActorSpec, ActorTaskSpec, RefMarker,
@@ -426,6 +427,8 @@ class WorkerExecutor:
         self._direct_lock = threading.Lock()
         self._direct_listener = None
         self._direct_port = None
+        # the CUDA_VISIBLE_DEVICES this process initialised CUDA on
+        self._bound: Optional[str] = None
 
     # ---- direct actor call serving (r18) ----
     def start_direct_server(self):
@@ -535,14 +538,14 @@ class WorkerExecutor:
             with self._queue_lock:
                 self._steals.received(spec.task_id)
                 self._inflight += 1
-            self._pool.submit(self._run_task, spec)
+            self._pool.submit(self._run_task, spec, msg.get("cards"))
         elif mtype == protocol.ACTOR_CREATE:
             spec: ActorSpec = msg["spec"]
             if spec.max_concurrency > 1:
                 self._pool = ThreadPoolExecutor(
                     max_workers=spec.max_concurrency,
                     thread_name_prefix="rtpu-actor")
-            self._pool.submit(self._create_actor, spec)
+            self._pool.submit(self._create_actor, spec, msg.get("cards"))
         elif mtype == protocol.ACTOR_TASK:
             self._accept_actor_task(msg["spec"], msg)
         elif mtype == protocol.CANCEL_TASK:
@@ -791,6 +794,10 @@ class WorkerExecutor:
                 return
         msg = {"type": protocol.TASK_DONE, "task_id": task_id,
                "results": stored_list, "error": error, **extra}
+        if not extra.get("is_actor_task"):      # a pooled worker's
+            bound = self._bound_report()
+            if bound is not None:
+                msg["cuda_bound"] = bound
         if busy:
             self.ctx.conn.send_lazy(msg)
         else:
@@ -830,7 +837,26 @@ class WorkerExecutor:
             renv, kv_get=lambda k: self.ctx.kv_op("get", k))
         self._cur_env_hash = h
 
-    def _run_task(self, spec: TaskSpec) -> None:
+    def _bound_report(self) -> Optional[str]:
+        """The `CUDA_VISIBLE_DEVICES` this process initialised CUDA on
+        ("*" for none set), once it has: the scheduler then leases this
+        worker only those cards."""
+        if self._bound is None and _gpu.cuda_bound():
+            self._bound = os.environ.get("CUDA_VISIBLE_DEVICES", "*")
+        return self._bound
+
+    @staticmethod
+    def _pin(cards: Optional[str]) -> None:
+        """Pin the process to a GPU lease's cards before its task or
+        actor constructor runs; a lease without cards leaves the pin as
+        it is. A process bound to other cards refuses the lease (raises)
+        rather than run it on them."""
+        if cards is not None:
+            _gpu.GPUAcceleratorManager.set_visible_accelerators(
+                cards.split(","))
+
+    def _run_task(self, spec: TaskSpec,
+                  cards: Optional[str] = None) -> None:
         from ray_tpu_torch.exceptions import TaskCancelledError
         with self._queue_lock:
             if not self._steals.start(spec.task_id):
@@ -856,6 +882,7 @@ class WorkerExecutor:
                 # same). Kept applied for reuse by same-env tasks.
                 self._switch_runtime_env(
                     getattr(spec, "runtime_env", None))
+                self._pin(cards)
                 fn = self._load_function(spec.func_id)
                 args, kwargs = self._resolve_args(spec.args, spec.kwargs)
                 result = fn(*args, **kwargs)
@@ -888,10 +915,12 @@ class WorkerExecutor:
         with self._queue_lock:
             self._started_tasks.discard(spec.task_id)
 
-    def _create_actor(self, spec: ActorSpec) -> None:
+    def _create_actor(self, spec: ActorSpec,
+                      cards: Optional[str] = None) -> None:
         try:
             # permanent: this worker is dedicated to the actor for life
             self._switch_runtime_env(getattr(spec, "runtime_env", None))
+            self._pin(cards)
             cls = self._load_function(spec.class_id)
             args, kwargs = self._resolve_args(spec.init_args,
                                               spec.init_kwargs)

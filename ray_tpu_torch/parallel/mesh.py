@@ -7,13 +7,16 @@ over the ranks of the default process group, with one mesh dimension per
 axis of AXIS_ORDER (size-1 axes included, so sharding rules can name any
 axis). Where the JAX package counts TPU slices (DCN-connected groups),
 this counts hosts: the outer axes (pp/dp/fsdp) may span hosts, the inner
-model axes (sp/ep/tp) stay within one.
+model axes (sp/ep/tp) stay within one. A host is the runtime node a rank
+runs on where the runtime placed it (a trainer's k ranks a bundle share
+their bundle's node), else the machine.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+import os
 import socket
 from typing import List, Optional, Tuple
 
@@ -66,9 +69,12 @@ class MeshSpec:
 
 
 def _rank_hosts(world: int) -> List[str]:
-    """The host name of every rank of the default group, by rank."""
+    """The host of every rank of the default group, by rank: the
+    runtime node that runs it (`RAY_TPU_NODE_ID`, set in every runtime
+    worker), else its machine's name."""
     hosts: List[Optional[str]] = [None] * world
-    dist.all_gather_object(hosts, socket.gethostname())
+    dist.all_gather_object(
+        hosts, os.environ.get("RAY_TPU_NODE_ID") or socket.gethostname())
     return hosts
 
 

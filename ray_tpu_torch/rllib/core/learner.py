@@ -390,9 +390,8 @@ class _LearnerRank:
             from ray_tpu_torch.parallel.dist import initialize_distributed
             device = None
             if _on_card(config):
-                # ranks on one host take its cards in turn
-                device = torch.device("cuda",
-                                      rank % torch.cuda.device_count())
+                # the card the runtime pinned this learner's process to
+                device = torch.device("cuda", torch.cuda.current_device())
                 config = dataclasses.replace(config, device=str(device))
             initialize_distributed(
                 coordinator, config.num_devices, rank,

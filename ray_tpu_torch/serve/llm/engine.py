@@ -693,6 +693,9 @@ class LLMEngine:
             st["cache_bytes_by_rank"] = ([st["cache_bytes"]]
                                          + self._ranks.cache_bytes)
             st["tp_pids"] = [os.getpid()] + self._ranks.pids
+            # the cards the runtime pinned each rank's process to
+            st["tp_cards"] = ([os.environ.get("CUDA_VISIBLE_DEVICES")]
+                              + self._ranks.cards)
         if self.core.device.type == "cuda":
             st["device_peak_bytes"] = torch.cuda.max_memory_allocated(
                 self.core.device)

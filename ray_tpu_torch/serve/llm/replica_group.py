@@ -211,15 +211,11 @@ class TPRank:
         self.device: Optional[torch.device] = None
         self.group: Optional[ReplicaGroup] = None
 
-    def place(self, device: Optional[str], rank: int,
-              whole_card: bool) -> dict:
+    def place(self, device: Optional[str]) -> dict:
         """Take this rank's device: the CPU when asked (with one intra-op
-        thread), else the host's card `rank` mod count when each rank
-        holds a whole card (the runtime does not pin cards to actors),
-        else the current card."""
+        thread), else the card the runtime pinned this actor's process
+        to (ranks of `num_gpus` below 1 may share it)."""
         from ray_tpu_torch.ops.dispatch import resolve_device
-        if device is None and whole_card and torch.cuda.is_available():
-            device = f"cuda:{rank % torch.cuda.device_count()}"
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -229,7 +225,8 @@ class TPRank:
             # decode step about 25-fold
             torch.set_num_threads(1)
         return {"host": socket.gethostname(), "pid": os.getpid(),
-                "device": device_key(self.device)}
+                "device": device_key(self.device),
+                "cards": os.environ.get("CUDA_VISIBLE_DEVICES")}
 
     def join(self, addr, rank: int, size: int, backend: str,
              leader: Tuple[str, int]) -> int:
@@ -352,10 +349,10 @@ class RankGroup:
                     for i in range(tp - 1)]
             dev_arg = None if device.type == "cuda" else str(device)
             infos = ray_tpu_torch.get(
-                [a.place.remote(dev_arg, r + 1, gpus >= 1)
-                 for r, a in enumerate(self.actors)],
+                [a.place.remote(dev_arg) for a in self.actors],
                 timeout=COLLECTIVE_TIMEOUT_S)
             self.pids = [i["pid"] for i in infos]
+            self.cards = [i["cards"] for i in infos]
             keys = [device_key(device)] + [i["device"] for i in infos]
             backend = choose_backend(keys)
             log.info("replica over tp=%d: %s process group (devices %s)",

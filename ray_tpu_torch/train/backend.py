@@ -4,9 +4,10 @@ Port of `ray_tpu/train/backend.py`. Parity: reference
 train/backend.py:32-56 (Backend ABC with on_start/on_training_start/
 on_shutdown) and the torch backend's master-address broadcast + env
 fanout (train/torch/config.py:66-121,156-200): worker 0 gives a
-rendezvous address and a free port, and every worker joins one
+rendezvous address and a free port, and every rank joins one
 `torch.distributed` process group there (`parallel/dist.py`), where the
-JAX package's JaxBackend joins `jax.distributed`.
+JAX package's JaxBackend joins `jax.distributed`. A rank on the card
+binds the card the runtime pinned its process to.
 """
 from __future__ import annotations
 
@@ -75,8 +76,8 @@ def _join_distributed(coordinator: str, num_processes: int, rank: int,
                                              process_index)
     device = None
     if backend == "nccl":
-        # ranks on one host take its cards in turn
-        device = torch.device("cuda", rank % torch.cuda.device_count())
+        # the card the runtime pinned this rank's process to
+        device = torch.device("cuda", torch.cuda.current_device())
     initialize_distributed(coordinator, num_processes, rank,
                            backend=backend, device=device)
     return process_index()
@@ -88,7 +89,7 @@ class TorchBackend(Backend):
         import cloudpickle
 
         import ray_tpu_torch
-        w = worker_group.num_workers
+        w = worker_group.world_size
         distributed = backend_config.distributed
         if distributed is None:
             distributed = w > 1
@@ -108,7 +109,7 @@ class TorchBackend(Backend):
                 or ray_tpu_torch.get(
                     worker_group.workers[0].find_free_port.remote()))
         coordinator = f"{addr}:{port}"
-        # every worker joins; worker 0 listens at the coordinator
+        # every rank joins; rank 0 listens at the coordinator
         join = cloudpickle.dumps(_join_distributed)
         refs = [worker_group.workers[rank].run.remote(
             join, (coordinator, w, rank, backend), {})

@@ -8,7 +8,9 @@ FailureConfig). `ScalingConfig` speaks workers x GPUs (`use_gpu`,
 a training loop builds its DeviceMesh with `parallel.prepare_mesh` over
 the process group TorchBackend formed. `topology` (e.g. "h100-16")
 places one worker per host of a multi-host slice
-(`util/accelerators/gpu.py`). `ElasticConfig` and
+(`util/accelerators/gpu.py`). A worker whose bundle holds k cards runs
+k ranks, one a card (`ranks_per_worker`): a JAX process drives every
+chip it reserves, a PyTorch process drives one card. `ElasticConfig` and
 `PipelineConfig` are copies, so configs validate the same way; `fit`
 runs the elastic path, and the MPMD pipeline (train/pipeline.py) with
 `pipeline_stages > 1`.
@@ -73,22 +75,26 @@ class ElasticConfig:
 class ScalingConfig:
     """How many training workers and what each holds.
 
-    num_workers: one worker process per rank of the process group.
-    use_gpu=False runs CPU-only workers (CI, debugging); use_gpu=True
-    reserves `gpus_per_worker` of the runtime's GPU resource for each.
+    num_workers: the workers, one placement-group bundle each (the JAX
+    package's hosts). use_gpu=False runs CPU-only workers (CI,
+    debugging); use_gpu=True reserves `gpus_per_worker` of the runtime's
+    GPU resource for each (a `gpus_per_worker` above 0 implies use_gpu).
+    A worker whose bundle holds k > 1 cards runs k ranks, one process a
+    card (`ranks_per_worker`), so the process group has
+    num_workers * k ranks.
     """
     num_workers: int = 1
     use_gpu: bool = False
     gpus_per_worker: int = 0            # 0 = one card
     resources_per_worker: Optional[Dict[str, float]] = None
-    mesh: Optional[MeshSpec] = None     # global mesh over all workers
+    mesh: Optional[MeshSpec] = None     # global mesh over all ranks
     placement_strategy: str = "PACK"
     # Multi-host slice mode: topology (e.g. "h100-16") makes the trainer
     # reserve the whole slice as a STRICT_SPREAD placement group (one
-    # worker per host, head bundle on rank 0; util/accelerators/gpu.py).
-    # Each worker owns all of its host's cards (GPU = cards a host), but
-    # its nccl rank binds one of them (TorchBackend: card rank % count):
-    # the loop must drive the others itself, or they stay idle.
+    # worker bundle per host, head bundle on worker 0;
+    # util/accelerators/gpu.py). Each bundle holds all of its host's
+    # cards (GPU = cards a host), and the worker runs one rank on each:
+    # the runtime pins every rank's process to a card of its own.
     topology: Optional[str] = None
     pod_name: Optional[str] = None
     # Elastic mode (r14): reshape the group on node loss/gain instead
@@ -97,6 +103,17 @@ class ScalingConfig:
     elastic: Optional[ElasticConfig] = None
 
     def __post_init__(self):
+        if self.gpus_per_worker < 0:
+            raise ValueError("gpus_per_worker must be >= 0")
+        if self.gpus_per_worker:
+            self.use_gpu = True
+        if self.elastic is not None and self.gpus_per_worker > 1:
+            # the elastic group reshapes rank by rank; a worker's k
+            # ranks would have to leave and join together
+            raise ValueError(
+                "elastic= is not supported with gpus_per_worker > 1 "
+                "(ROADMAP queue 3, item 26: reshape by whole worker "
+                "bundles); run elastic with one card a worker")
         if self.elastic is not None:
             # cross-validate against the EFFECTIVE ceiling now (0 means
             # num_workers): an impossible floor would otherwise surface
@@ -126,6 +143,16 @@ class ScalingConfig:
             self.num_workers = hosts
             self.use_gpu = True
             self.placement_strategy = "STRICT_SPREAD"
+
+    def ranks_per_worker(self) -> int:
+        """k: the ranks each worker bundle runs, one a card — all of a
+        host's cards in slice mode, else `gpus_per_worker` (one rank
+        for a CPU worker or one card)."""
+        if self.topology is not None:
+            from ray_tpu_torch._private.accelerators.gpu import (
+                cards_per_host)
+            return cards_per_host(self.topology)
+        return max(1, self.gpus_per_worker)
 
     def worker_resources(self) -> Dict[str, float]:
         res = dict(self.resources_per_worker or {})

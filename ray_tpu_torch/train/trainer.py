@@ -1,10 +1,13 @@
 """TorchTrainer: the DataParallelTrainer equivalent, standalone.
 
 Port of `ray_tpu/train/trainer.py` (its TorchTrainer): the data-parallel
-fit loop, dataset sharding, the driver's result loop and the elastic
-dispatch (`train/elastic.py`) are copies. The MPMD pipeline mode
-(`pipeline_stages > 1`, ROADMAP queue 1, item 9) raises
-NotImplementedError.
+fit loop, dataset sharding, the driver's result loop, the elastic
+dispatch (`train/elastic.py`) and the MPMD pipeline mode
+(`pipeline_stages > 1`, `train/pipeline.py`) are its counterparts. Where
+a JAX worker drives every chip of its host, a worker here runs one rank
+a card (`ScalingConfig.ranks_per_worker`): the loop runs on every rank,
+each rank gets its own dataset shard, and results and checkpoints come
+from world rank 0.
 
 Parity: reference train/data_parallel_trainer.py (training_loop:428-474)
 + backend_executor.py (start:135, whole-group _restart:759, max_failures
@@ -37,10 +40,11 @@ logger = logging.getLogger(__name__)
 class TorchTrainer:
     """Runs `train_loop_per_worker` on a group of worker actors.
 
-    Each worker is one process; with TorchConfig(distributed=True) the
-    group forms one `torch.distributed` process group, so the user loop
-    can all-reduce across ranks or wrap its model in DDP — the
-    collective-safe fan-out primitive of SURVEY.md §7.
+    Each rank is one process (k of them in a worker bundle of k
+    cards); with TorchConfig(distributed=True) the ranks form one
+    `torch.distributed` process group, so the user loop can all-reduce
+    across ranks or wrap its model in DDP — the collective-safe fan-out
+    primitive of SURVEY.md §7.
     """
 
     def __init__(self,
@@ -108,10 +112,7 @@ class TorchTrainer:
         error: Optional[BaseException] = None
 
         while True:
-            group = WorkerGroup(self._scaling.num_workers,
-                                self._scaling.worker_resources(),
-                                self._scaling.placement_strategy,
-                                bundles=self._scaling.worker_bundles())
+            group = WorkerGroup.from_scaling(self._scaling)
             backend: Backend = self._backend_config.backend_cls()()
             try:
                 group.start()
@@ -125,7 +126,7 @@ class TorchTrainer:
                     # put once, fan out the ref: workers resolve it to
                     # the bytes via shm instead of N pickled copies
                     restore_arg = ray_tpu_torch.put(pack_dir(restore.path))
-                shard_bytes = self._dataset_shards(group.num_workers)
+                shard_bytes = self._dataset_shards(group.world_size)
                 ray_tpu_torch.get([
                     w.init_session.remote(fn_bytes, self._config,
                                           restore_arg, shard_bytes[i])
@@ -161,9 +162,9 @@ class TorchTrainer:
 
     # ------------------------------------------------- dataset sharding
     def _dataset_shards(self, n: int) -> list:
-        """Split every dataset into one shard per worker (reference
+        """Split every dataset into one shard per rank (reference
         data_parallel_trainer streaming_split). Datasets with fewer
-        partitions than workers are repartitioned first."""
+        partitions than ranks are repartitioned first."""
         if not self._datasets:
             return [None] * n
         per_worker: list = [dict() for _ in range(n)]
@@ -179,7 +180,7 @@ class TorchTrainer:
                        manager: CheckpointManager,
                        metrics_history: list) -> Dict[str, Any]:
         last: Dict[str, Any] = {}
-        done = [False] * group.num_workers
+        done = [False] * group.world_size
         while not all(done):
             # One synchronous round of next_result across live workers —
             # report() is collective in SPMD loops, so all workers reach
@@ -192,7 +193,7 @@ class TorchTrainer:
             idx = 0
             round_metrics: Optional[Dict[str, Any]] = None
             round_ckpt: Optional[bytes] = None
-            for i in range(group.num_workers):
+            for i in range(group.world_size):
                 if done[i]:
                     continue
                 item = results[idx]

@@ -3,9 +3,13 @@
 Port of `ray_tpu/train/worker_group.py`. Parity: reference
 train/_internal/worker_group.py (WorkerGroup:102, RayTrainWorker:19) +
 the accelerator-visibility env sharing of backend_executor.py:271-351.
-Each worker is one process that becomes one rank of a
-`torch.distributed` process group. A worker reserves `num_gpus` from its
-bundle's `GPU` where the JAX package reserves `num_tpus` from `TPU`.
+A JAX worker is one process that drives every chip of its bundle; a
+PyTorch process drives one card. So a bundle of k cards runs k
+`RayTrainWorker` actors (`ranks_per_worker`), each `num_gpus=1` of the
+bundle's `GPU` (the runtime pins each to a card of its own) and one rank
+of a `torch.distributed` process group: world rank `bundle * k +
+local`. `num_workers` counts bundles, as the JAX package counts hosts;
+`world_size` counts ranks, and `workers` holds them by world rank.
 
 This module must not import torch when it is loaded: the backend's env
 (`CUDA_VISIBLE_DEVICES` for CPU groups) reaches a worker after its
@@ -25,11 +29,15 @@ from ray_tpu_torch.train.session import TrainContext, _TrainSession
 
 
 class RayTrainWorker:
-    """Actor running one training session (one per host)."""
+    """Actor running one rank's training session (k per bundle)."""
 
-    def __init__(self, rank: int, world_size: int):
+    def __init__(self, rank: int, world_size: int, local_rank: int = 0,
+                 local_world_size: int = 1,
+                 node_rank: Optional[int] = None):
         self._rank = rank
         self._world_size = world_size
+        self._local = (local_rank, local_world_size,
+                       rank if node_rank is None else node_rank)
         self._session: Optional[_TrainSession] = None
 
     # ------------------------------------------------------------ setup
@@ -60,9 +68,11 @@ class RayTrainWorker:
                      datasets_bytes: Optional[bytes] = None,
                      ckpt_every: int = 0) -> None:
         fn = cloudpickle.loads(fn_bytes)
+        local_rank, local_world_size, node_rank = self._local
         ctx = TrainContext(
             world_rank=self._rank, world_size=self._world_size,
-            local_rank=0, local_world_size=1, node_rank=self._rank)
+            local_rank=local_rank, local_world_size=local_world_size,
+            node_rank=node_rank)
         restore = None
         if restore_bytes is not None:
             # The driver ships the restore checkpoint as tar bytes so the
@@ -127,14 +137,17 @@ class WorkerGroup:
     The group schedules through a placement group (one bundle per
     worker, reference backend_executor.py:219) so worker placement is
     atomic: either every rank gets its bundle or the PG creation raises
-    — no half-started group holding cards."""
+    — no half-started group holding cards. Each bundle runs
+    `ranks_per_worker` ranks, each with an even share of it."""
 
     def __init__(self, num_workers: int,
                  resources_per_worker: Optional[Dict[str, float]] = None,
                  placement_strategy: str = "PACK",
                  bundles: Optional[List[Dict[str, float]]] = None,
-                 name: str = "train_worker_group"):
+                 name: str = "train_worker_group",
+                 ranks_per_worker: int = 1):
         self.num_workers = num_workers
+        self.ranks_per_worker = int(ranks_per_worker)
         self._resources = dict(resources_per_worker or {"CPU": 1.0})
         self._strategy = placement_strategy
         # Group name (MPMD pipeline mode runs one group PER STAGE, so
@@ -147,6 +160,19 @@ class WorkerGroup:
                              f"{num_workers} workers")
         self.workers: List[Any] = []
         self._pg = None
+
+    @classmethod
+    def from_scaling(cls, scaling, name: str = "train_worker_group"
+                     ) -> "WorkerGroup":
+        """The group a ScalingConfig asks for."""
+        return cls(scaling.num_workers, scaling.worker_resources(),
+                   scaling.placement_strategy,
+                   bundles=scaling.worker_bundles(), name=name,
+                   ranks_per_worker=scaling.ranks_per_worker())
+
+    @property
+    def world_size(self) -> int:
+        return self.num_workers * self.ranks_per_worker
 
     @property
     def resources_per_worker(self) -> Dict[str, float]:
@@ -167,18 +193,21 @@ class WorkerGroup:
                 f"({self._resources} each, {self._strategy}) not ready "
                 f"within 60s — cluster lacks free capacity")
         self.workers = []
-        for rank in range(self.num_workers):
-            res = dict(self._bundles[rank] if self._bundles
-                       else self._resources)
+        k = self.ranks_per_worker
+        for b in range(self.num_workers):
+            res = {name: v / k for name, v in
+                   (self._bundles[b] if self._bundles
+                    else self._resources).items()}
             cls = ray_tpu_torch.remote(**{
-                "num_cpus": res.pop("CPU", 1.0),
+                "num_cpus": res.pop("CPU", 1.0 / k),
                 "num_gpus": res.pop("GPU", 0) or None,
                 "resources": res or None,
             })(RayTrainWorker)
-            self.workers.append(
-                cls.options(placement_group=self._pg,
-                            placement_group_bundle_index=rank)
-                .remote(rank, self.num_workers))
+            for local in range(k):
+                self.workers.append(
+                    cls.options(placement_group=self._pg,
+                                placement_group_bundle_index=b)
+                    .remote(b * k + local, self.world_size, local, k, b))
         # fail fast if any worker failed to start
         ray_tpu_torch.get([w.ping.remote() for w in self.workers], timeout=60)
 

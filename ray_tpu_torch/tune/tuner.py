@@ -178,10 +178,7 @@ class _GroupTrialRunner:
         from ray_tpu_torch.train.worker_group import WorkerGroup
         tr = self._trainer
         scaling = tr._scaling
-        group = WorkerGroup(scaling.num_workers,
-                            scaling.worker_resources(),
-                            scaling.placement_strategy,
-                            bundles=scaling.worker_bundles())
+        group = WorkerGroup.from_scaling(scaling)
         group.start()
         try:
             backend: Backend = tr._backend_config.backend_cls()()
@@ -189,7 +186,7 @@ class _GroupTrialRunner:
             fn_bytes = cloudpickle.dumps(tr._fn)
             restore_arg = (ray_tpu_torch.put(restore_bytes)
                            if restore_bytes is not None else None)
-            shard_bytes = tr._dataset_shards(group.num_workers)
+            shard_bytes = tr._dataset_shards(group.world_size)
             ray_tpu_torch.get([
                 w.init_session.remote(fn_bytes, config, restore_arg,
                                       shard_bytes[i])

@@ -75,13 +75,17 @@ def test_gpu_slice_placement_group_schedules_one_worker_per_host():
         ray_tpu_torch.shutdown()
 
 
-def test_topology_trainer_places_one_worker_per_host():
-    """`ScalingConfig(topology="h100-16")` runs two workers, one on each
-    host of the slice, in its STRICT_SPREAD placement group (on the CPU:
-    gloo, the cards hidden)."""
+def _run_topology(topology: str, per_host: int) -> None:
+    """TorchTrainer over a 2-host slice of `topology` (on the CPU: gloo,
+    the cards hidden): one worker bundle a host, STRICT_SPREAD, and each
+    worker runs one rank a card, `per_host` ranks on each host, the
+    first `per_host` in the head bundle."""
     from ray_tpu_torch.train import RunConfig, TorchConfig, TorchTrainer
     _fresh_runtime()
     c = _slice_cluster(2, "my-slice")
+    head_host = next(n["node_id"] for n in c.list_nodes()
+                     if "GPU-h100-head" in n["resources"])
+    world = 2 * per_host
 
     def loop(config):
         import os
@@ -90,25 +94,54 @@ def test_topology_trainer_places_one_worker_per_host():
         ctx = rt_train.get_context()
         with open(os.path.join(config["dir"],
                                f"rank{ctx.get_world_rank()}"), "w") as f:
-            f.write(os.environ["RAY_TPU_NODE_ID"])
+            f.write(" ".join([os.environ["RAY_TPU_NODE_ID"],
+                              str(ctx.get_local_rank()),
+                              str(ctx.get_local_world_size()),
+                              str(ctx.get_node_rank())]))
         rt_train.report({"world": ctx.get_world_size()})
 
     try:
         with tempfile.TemporaryDirectory() as d:
             result = TorchTrainer(
                 loop, train_loop_config={"dir": d},
-                scaling_config=ScalingConfig(topology="h100-16",
+                scaling_config=ScalingConfig(topology=topology,
                                              pod_name="my-slice"),
                 backend_config=TorchConfig(platform="cpu"),
                 run_config=RunConfig(name="slice", storage_path=d)).fit()
             assert result.error is None, result.error
-            assert result.metrics["world"] == 2
-            placed = [open(os.path.join(d, f"rank{r}")).read()
-                      for r in range(2)]
-        assert len(set(placed)) == 2
-        assert set(placed) <= set(c.alive_node_ids())
+            assert result.metrics["world"] == world
+            placed = [open(os.path.join(d, f"rank{r}")).read().split()
+                      for r in range(world)]
+        hosts = [p[0] for p in placed]
+        assert len(set(hosts)) == 2
+        assert set(hosts) <= set(c.alive_node_ids())
+        assert set(hosts[:per_host]) == {head_host}
+        assert hosts.count(head_host) == per_host
+        assert [int(p[1]) for p in placed] == list(range(per_host)) * 2
+        assert {int(p[2]) for p in placed} == {per_host}
+        assert [int(p[3]) for p in placed] == [0] * per_host + [1] * per_host
     finally:
         ray_tpu_torch.shutdown()
+
+
+@pytest.mark.slow
+def test_topology_trainer_places_one_worker_per_host():
+    """`ScalingConfig(topology="h100-16")` runs two workers, one on each
+    host of the slice, in its STRICT_SPREAD placement group. A JAX
+    worker drives its host's 8 chips; here each worker runs one rank a
+    card: 16 ranks joined in one gloo group, 8 on each host, ranks 0-7
+    in the head bundle. Slow: 16 processes import torch to join (9 s
+    alone); `test_topology_trainer_runs_a_rank_per_card` is its fast
+    sibling."""
+    _run_topology("h100-16", 8)
+
+
+def test_topology_trainer_runs_a_rank_per_card(monkeypatch):
+    """The 4-rank sibling of the case above: hosts of 2 cards, so
+    "h100-4" is a 2-host slice of 4 ranks, 2 on each host."""
+    monkeypatch.setitem(accel._CARDS_PER_HOST, "h100", 2)
+    assert (accel.num_hosts("h100-4"), accel.cards_per_host("h100-4")) == (2, 2)
+    _run_topology("h100-4", 2)
 
 
 def test_list_actors_reports_placement_group_and_bundle():

@@ -234,7 +234,7 @@ def _rank_engine(cfg, params, prompts):
     g = _group()
     if g.rank:
         r = rg.TPRank()
-        r.place("cpu", g.rank, False)
+        r.place("cpu")
         r.group = g
         r.setup(dataclasses.asdict(cfg), params, 0, PAGES, PAGE, BATCH)
         r.run()
