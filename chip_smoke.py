@@ -22,7 +22,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      computes the same function (a yardstick the port never calls),
      with CUDA events, beside the least time the card could take, at the
      serving and training shapes (the two backward kernels also as a
-     pair against SDPA's backward);
+     pair against SDPA's backward; RMSNorm also with L2 flushed before
+     each launch, since its 33.6 MB inputs fit in the card's L2);
   5. serve: llama3-8b at full width and depth (random weights from a
      seed) through the port's EngineCore, five requests, one submitted
      mid-flight; every serving kernel must have launched during this
@@ -84,14 +85,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      memory is back;
  10. elastic: phase 9's cut model and batch through the elastic
      `TorchTrainer` (`ScalingConfig(elastic=ElasticConfig(...))`) across
-     a node's death: a head with no GPU, the worker on node agent A
-     (a `ray_tpu_torch._private.node_agent` process owning the card's
-     `GPU: 1`), a checkpoint at step 3, agent A SIGKILLed after step 5
-     (its worker gone and the card's memory back within a bound), then
-     agent B, where the loop forms a new group whose worker restores
-     the checkpoint through the object plane and trains to step 7:
-     every loss on both nodes equal to phase 9's reference at the same
-     step bit for bit, each step once in `metrics_history`, every
+     a node's death, one worker of `gpus_per_worker=1` (the bundle path
+     that runs k ranks a worker of k cards): a head with no GPU, the
+     worker on node agent A (a `ray_tpu_torch._private.node_agent`
+     process owning the card's `GPU: 1`), world rank 0 of 1 and local
+     rank 0 of 1, pinned to the card before its first CUDA call, a
+     checkpoint at step 3, agent A SIGKILLed after step 5 (its worker
+     gone and the card's memory back within a bound), then agent B,
+     where the loop forms a new group whose worker (again rank 0 of 1,
+     pinned before CUDA) restores the checkpoint through the object
+     plane and trains to step 7: every loss on both nodes equal to
+     phase 9's reference at the same step bit for bit, each step once
+     in `metrics_history`, every
      restored tensor equal to its checksum, 4 / 4 / 4 / 9 launches a
      step on both nodes, the restore's broadcast to B complete and its route
      (TCP or mapped in place) printed; after `shutdown()` the card's
@@ -778,10 +783,46 @@ def time_three(kernel, plain, library, iters: int, plain_iters: int) -> dict:
     return out
 
 
+def time_launches(fn, iters: int, before=None) -> float:
+    """Device ms of one call, the mean over `iters` calls each between
+    its own pair of CUDA events, all queued behind a sleep kernel; with
+    `before`, that runs ahead of each call's first event (outside the
+    timed span)."""
+    fn()
+    if before is not None:
+        before()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(1 << 26)
+    for start, end in events:
+        if before is not None:
+            before()
+        start.record()
+        fn()
+        end.record()
+    events[-1][1].synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def l2_flush_buffer(dev) -> torch.Tensor:
+    """A buffer twice the card's L2 (at least 128 MiB): writing all of it
+    evicts whatever a kernel's inputs left there."""
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 0)
+    return torch.empty(max(2 * l2, 128 << 20) // 4, dtype=torch.int32,
+                       device=dev)
+
+
 def time_rms(dev, peaks, rows: int, d: int = D_MODEL,
              wdt: torch.dtype = torch.float32) -> dict:
     """The kernel on bf16 x (rows, d) with a w of dtype `wdt`, against the
-    plain version and F.rms_norm on the same x."""
+    plain version and F.rms_norm on the same x. `ms` is taken with x
+    warm in L2 when it fits (33.6 MB at the prefill and training shapes,
+    in a 50 MB L2); `flushed_ms` overwrites a buffer twice L2 before
+    each launch, so x comes from HBM, `read_flushed_ms` reads that
+    buffer instead (L2 then holds no dirty lines to write back during
+    the launch), and `single_ms` times the same launches, one between
+    each pair of events, without a flush."""
     gen = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
     w = (0.1 * torch.randn(d, generator=gen, device=dev)).to(wdt)
@@ -795,6 +836,18 @@ def time_rms(dev, peaks, rows: int, d: int = D_MODEL,
     out["bound_ms"], out["bound_by"] = bound(nbytes, 4 * rows * d, peaks[2],
                                              peaks)
     out["bound_share"] = out["bound_ms"] / out["ms"]
+    flush = l2_flush_buffer(dev)
+    out["flush_bytes"] = flush.numel() * 4
+    out["flushed_ms"] = time_launches(lambda: rms_norm(x, w, EPS), iters,
+                                      before=flush.zero_)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    out["read_flushed_ms"] = time_launches(
+        lambda: rms_norm(x, w, EPS), iters,
+        before=lambda: torch.sum(flush, 0, dtype=torch.int64, out=total))
+    out["single_ms"] = time_launches(lambda: rms_norm(x, w, EPS), iters)
+    out["flushed_bound_share"] = out["bound_ms"] / out["flushed_ms"]
+    out["read_flushed_bound_share"] = out["bound_ms"] / out["read_flushed_ms"]
+    del flush, total
     out["shape"] = f"x ({rows}, {d}) bf16, w {str(wdt).split('.')[-1]}"
     return out
 
@@ -1997,7 +2050,11 @@ def elastic_worker(config: dict) -> None:
     model = Transformer(cfg)
     params = model.init(0, device=dev)
     opt = bench.make_optimizer(params)
-    first = {"loop_start": loop_start, "pid": os.getpid(), "node": node}
+    ctx = rt_train.get_context()
+    first = {"loop_start": loop_start, "pid": os.getpid(), "node": node,
+             "ranks": [ctx.get_world_rank(), ctx.get_world_size(),
+                       ctx.get_local_rank(), ctx.get_local_world_size()],
+             "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
     restored = rt_train.get_checkpoint()
     start = 0
     if restored is not None:
@@ -2101,6 +2158,16 @@ def start_agent(rt, num_gpus: int, resources=None) -> tuple:
     return agent, at - t0
 
 
+def pin_probe() -> dict:
+    """In a train worker before its backend joins the process group (its
+    first CUDA call on the card): the card it is pinned to and whether
+    CUDA is already bound in it."""
+    from ray_tpu_torch._private.accelerators import gpu
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "bound_before": gpu.cuda_bound(), "pid": os.getpid(),
+            "node": os.environ.get("RAY_TPU_NODE_ID")}
+
+
 def elastic_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
                   seq: int = TRAIN_S) -> dict:
     """The bench model trained through the elastic `TorchTrainer`
@@ -2116,15 +2183,21 @@ def elastic_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
     tensor its checksum, each step must launch each kernel as a
     `train()` step does, `metrics_history` must hold each step once, and
     after `shutdown()` the card's memory is back within 1 GiB. `dev` is
-    the card; the CPU only rehearses (gloo, agents with no GPU)."""
+    the card; the CPU only rehearses (gloo, agents with no GPU). The
+    worker takes `gpus_per_worker=1`, the elastic bundle path of k ranks
+    a worker at k = 1: in each group it must be world rank 0 of 1, local
+    rank 0 of 1, pinned to the card before the backend's first CUDA call
+    (read by `pin_probe` ahead of `TorchBackend.on_start`)."""
     import tempfile
 
     import ray_tpu_torch
     from ray_tpu_torch import data as rt_data
+    from ray_tpu_torch._private.accelerators.gpu import card_names
     from ray_tpu_torch._private.object_transfer import OBJECT_PLANE_STATS
     from ray_tpu_torch.train import (CheckpointConfig, CheckpointManager,
                                      ElasticConfig, RunConfig, ScalingConfig,
                                      TorchConfig, TorchTrainer)
+    from ray_tpu_torch.train import backend as backend_mod
     from ray_tpu_torch.train import elastic as elastic_mod
     on_card = dev.type == "cuda"
     cfg = cfg or bench.bench_config()
@@ -2139,7 +2212,12 @@ def elastic_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
               "device": "cuda" if on_card else "cpu"}
     # on the CPU no GPU keeps the worker off the head: a resource does
     gpus, only_agents = (1, None) if on_card else (0, {"agent": 1.0})
-    marks: dict = {"capacity": [], "pack": [], "bcast": [], "register": []}
+    marks: dict = {"capacity": [], "pack": [], "bcast": [], "register": [],
+                   "pins": []}
+    # the runtime's pin; in the loop, after the backend: the same card,
+    # or none in the CPU rehearsal (TorchConfig(platform="cpu") hides it)
+    want_pin = card_names(1)[0] if on_card else None
+    loop_pin = want_pin if on_card else ""
     originals = {}
 
     def timed(owner, name, key, size=None):
@@ -2204,12 +2282,22 @@ def elastic_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
         timed(ray_tpu_torch, "broadcast", "bcast")
         timed(CheckpointManager, "register_bytes", "register",
               lambda out, a: len(a[1]))
+        on_start = backend_mod.TorchBackend.on_start
+        originals[backend_mod.TorchBackend, "on_start"] = on_start
+
+        def probed_on_start(backend, group, backend_config):
+            marks["pins"].append({"ranks": group.world_size,
+                                  "bundles": group.num_workers,
+                                  "probe": group.run_on_all(pin_probe)})
+            return on_start(backend, group, backend_config)
+        backend_mod.TorchBackend.on_start = probed_on_start
         plane0 = dict(OBJECT_PLANE_STATS)
         fit_at = time.time()
         result = TorchTrainer(
             elastic_loop, train_loop_config=config,
             scaling_config=ScalingConfig(
                 num_workers=1, use_gpu=on_card,
+                gpus_per_worker=1 if on_card else 0,
                 resources_per_worker=(None if on_card
                                       else {"CPU": 1.0, **only_agents}),
                 elastic=ElasticConfig(min_workers=1, max_workers=1,
@@ -2279,6 +2367,24 @@ def elastic_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
                 raise AssertionError(f"step {r['step']} on {r['node']} "
                                      f"launched {r['launches']}, expected "
                                      f"{per_step}")
+        # each group: one bundle of one rank, pinned before CUDA
+        pins = [{"ranks": m["ranks"], "bundles": m["bundles"],
+                 "visible": [p["visible"] for p in m["probe"]],
+                 "bound_before": [p["bound_before"] for p in m["probe"]],
+                 "node": [p["node"] for p in m["probe"]]}
+                for m in marks["pins"]]
+        seen = [{"node": r["node"], "ranks": r["ranks"],
+                 "visible": r["visible"]} for r in (on_a[0], on_b[0])]
+        if (pins != [{"ranks": 1, "bundles": 1, "visible": [want_pin],
+                      "bound_before": [False], "node": [n]}
+                     for n in (node_a, node_b)]
+                or seen != [{"node": n, "ranks": [0, 1, 0, 1],
+                             "visible": loop_pin}
+                            for n in (node_a, node_b)]):
+            raise AssertionError(f"elastic groups' ranks and pins "
+                                 f"{pins}, in the loop {seen}: expected "
+                                 f"rank 0 of 1, local 0 of 1, pinned to "
+                                 f"{want_pin!r} before CUDA on A, then B")
         if on_b[0].get("checksums_equal") != hist[
                 ELASTIC_CKPT_STEP]["checksums"]:
             raise AssertionError("the restore on B did not check every "
@@ -2351,6 +2457,7 @@ def elastic_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
         "launches_per_step": per_step,
         "launches": {k: sum(r["launches"][k] for r in log_rows)
                      for k in per_step},
+        "pins": pins, "ranks_seen": seen,
         "elastic": {k: v for k, v in el.items() if k != "restore_broadcast"},
     }
     log(f"elastic: agent A start {out['agent_a_start_s']:.2f} s, agent B "
@@ -2364,6 +2471,12 @@ def elastic_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
     log("elastic: restore " + json.dumps(out["restore"]))
     log(f"elastic: restore route {out['restore_route']} (head served "
         f"{served} of {nbytes} bytes)")
+    for what, pin, rank in zip("AB", pins, seen):
+        log(f"elastic: on {what} world rank {rank['ranks'][0]} of "
+            f"{rank['ranks'][1]}, local rank {rank['ranks'][2]} of "
+            f"{rank['ranks'][3]}, pinned to card {rank['visible']!r} "
+            f"(before the backend's first CUDA call: "
+            f"{pin['visible']}, bound {pin['bound_before']})")
     log(f"elastic: step p50 on A {out['step_ms_p50_on_a']:.2f} ms, on B "
         f"{out['step_ms_p50_on_b']:.2f} ms, train()'s "
         f"{out['train_step_ms_p50']:.2f} ms; phase {phase_s:.1f} s")

@@ -33,6 +33,7 @@ import json
 import os
 import pickle
 import shutil
+import sys
 import tarfile
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -87,9 +88,18 @@ class _Leaf:
         self.i = i
 
 
+def _tensor_type():
+    """torch.Tensor, or None while this process has not imported torch:
+    no leaf can be a tensor then, and a numpy-only save skips torch's
+    import (seconds in a fresh worker)."""
+    torch = sys.modules.get("torch")
+    return None if torch is None else torch.Tensor
+
+
 def _is_leaf(x) -> bool:
-    import torch
-    return isinstance(x, (torch.Tensor, np.ndarray, np.generic))
+    tensor = _tensor_type()
+    return (isinstance(x, (np.ndarray, np.generic))
+            or (tensor is not None and isinstance(x, tensor)))
 
 
 def _walk(tree: Any, is_leaf, fn) -> Any:
@@ -133,13 +143,14 @@ def _encode_leaf(leaf) -> Tuple[np.ndarray, str]:
     "torch:<dtype>" for a tensor stored as raw bytes (the last axis its
     element's bytes). 0-d tensors can't be viewed as uint8 directly —
     they ride as (1,) with a `!0d` tag suffix."""
-    import torch
-    if not isinstance(leaf, torch.Tensor):
+    tensor = _tensor_type()
+    if tensor is None or not isinstance(leaf, tensor):
         a = np.asarray(leaf)
         if a.dtype.isbuiltin != 1:
             raise TypeError(f"numpy dtype {a.dtype} has no npz form: save "
                             f"it as a torch tensor")
         return a, "np"
+    import torch
     t = leaf.detach().to("cpu").contiguous()
     name = str(t.dtype).removeprefix("torch.")
     if name in _NUMPY_NATIVE:

@@ -10,7 +10,8 @@ the process group TorchBackend formed. `topology` (e.g. "h100-16")
 places one worker per host of a multi-host slice
 (`util/accelerators/gpu.py`). A worker whose bundle holds k cards runs
 k ranks, one a card (`ranks_per_worker`): a JAX process drives every
-chip it reserves, a PyTorch process drives one card. `ElasticConfig` and
+chip it reserves, a PyTorch process drives one card; the elastic group
+does the same and reshapes by whole bundles. `ElasticConfig` and
 `PipelineConfig` are copies, so configs validate the same way; `fit`
 runs the elastic path, and the MPMD pipeline (train/pipeline.py) with
 `pipeline_stages > 1`.
@@ -39,6 +40,11 @@ class ElasticConfig:
     (autoscaler drain) the trainer flushes a checkpoint and
     acknowledges the drain so the node is released only after state is
     safe.
+
+    The bounds count workers, one placement-group bundle each (the JAX
+    package's hosts), not ranks: a worker of `gpus_per_worker=k` cards
+    runs k ranks, and the group grows and shrinks by whole bundles, so
+    a host's k ranks leave together and join together.
 
     min_workers: reshape floor — below this fit() waits for capacity
         (RAY_TPU_ELASTIC_CAPACITY_TIMEOUT_S) instead of running with
@@ -99,7 +105,8 @@ class ScalingConfig:
     pod_name: Optional[str] = None
     # Elastic mode (r14): reshape the group on node loss/gain instead
     # of whole-group restart-in-place; num_workers becomes the DESIRED
-    # world size within [elastic.min_workers, elastic.max_workers].
+    # worker count within [elastic.min_workers, elastic.max_workers].
+    # All three count bundles; the process group has k ranks a bundle.
     elastic: Optional[ElasticConfig] = None
 
     def __post_init__(self):
@@ -107,13 +114,6 @@ class ScalingConfig:
             raise ValueError("gpus_per_worker must be >= 0")
         if self.gpus_per_worker:
             self.use_gpu = True
-        if self.elastic is not None and self.gpus_per_worker > 1:
-            # the elastic group reshapes rank by rank; a worker's k
-            # ranks would have to leave and join together
-            raise ValueError(
-                "elastic= is not supported with gpus_per_worker > 1 "
-                "(ROADMAP queue 3, item 26: reshape by whole worker "
-                "bundles); run elastic with one card a worker")
         if self.elastic is not None:
             # cross-validate against the EFFECTIVE ceiling now (0 means
             # num_workers): an impossible floor would otherwise surface

@@ -4,6 +4,14 @@ A copy of `ray_tpu/train/elastic.py` over `TorchTrainer`. The restore's
 tar is `put` as `bytes`, which the object plane carries out of band (a
 shm segment), so a checkpoint over `wire_max_frame_bytes` travels too.
 
+A worker is a placement-group bundle (the JAX package's host): with
+`gpus_per_worker=k` it runs k ranks, one a card, as `TorchTrainer`'s
+group does. `num_workers`, `min_workers`, `max_workers`, the capacity
+count and `final_world_size` count bundles; the process group, the
+dataset split and the result rounds count ranks. So the group grows and
+shrinks by whole bundles: a lost node takes its k ranks with it, and a
+joining one brings k.
+
 ``fit_elastic`` composes the stack's existing fault-tolerance
 primitives into one end-to-end path (ROADMAP open item 5): on node
 loss OR gain mid-``fit()`` the worker group reshapes — the dp/fsdp
@@ -141,11 +149,13 @@ class _ElasticRun:
         return getattr(self._ctx, "cluster", None)
 
     def _target_world(self) -> int:
-        """Workers the cluster can host NOW, clamped to max_workers:
-        per-worker resource shape packed into each schedulable (alive,
-        non-draining) node's total. Other tenants' usage is ignored —
-        the group's own resources are about to be freed at reshape, and
-        elastic training is assumed to own its nodes."""
+        """Workers (bundles) the cluster can host NOW, clamped to
+        max_workers: per-worker resource shape (all k cards of a
+        bundle) packed into each schedulable (alive, non-draining)
+        node's total, so a node with fewer than k cards hosts none.
+        Other tenants' usage is ignored — the group's own resources are
+        about to be freed at reshape, and elastic training is assumed
+        to own its nodes."""
         cluster = self._cluster()
         if cluster is None:
             return min(self._desired, self._max_workers)
@@ -219,9 +229,10 @@ class _ElasticRun:
             # either: the dead worker's refs error with ActorError.
 
     def _request_flush(self, group: WorkerGroup) -> None:
-        """Fire-and-forget checkpoint request to every rank (SPMD loops
-        must reach the save together; the per-rank flag flips them all,
-        and the step-keyed should_checkpoint keeps ranks aligned)."""
+        """Fire-and-forget checkpoint request to every rank, all k of
+        each bundle (SPMD loops must reach the save together; the
+        per-rank flag flips them all, and the step-keyed
+        should_checkpoint keeps ranks aligned)."""
         for w in group.workers:
             try:
                 w.request_checkpoint.remote()
@@ -278,10 +289,10 @@ class _ElasticRun:
 
     # ---------------------------------------------------------- grow
     def _should_grow(self, group: WorkerGroup) -> bool:
-        """Grow reshape: capacity now hosts more workers than the group
-        has (and the group is under max). Never tear down progress that
-        isn't checkpointed — request a flush and grow on the round
-        where it registers."""
+        """Grow reshape: capacity now hosts more workers (bundles) than
+        the group has (and the group is under max). Never tear down
+        progress that isn't checkpointed — request a flush and grow on
+        the round where it registers."""
         if group.num_workers >= self._max_workers:
             return False
         target = self._target_world()
@@ -302,14 +313,44 @@ class _ElasticRun:
         return False
 
     # -------------------------------------------------------- driving
+    def _peer_lost(self, refs: list, group_nodes: Set[str]) -> bool:
+        """Whether a rank's error follows the loss of a peer. A
+        surviving rank's collective fails on its own (gloo: the dead
+        peer closed the connection) before the dead ranks' ActorError
+        reaches the trainer, so the error alone would count as the
+        user's failure. Watch for up to two heartbeat timeouts: a group
+        node declared dead, or another rank of the round failing with a
+        reshape error, is a lost peer; a round whose other ranks all
+        resolved without one is the user's failure."""
+        cluster = self._cluster()
+        deadline = time.monotonic() + 2 * CONFIG.heartbeat_timeout_s
+        pending = list(refs)
+        while True:
+            if cluster is not None and any(
+                    not getattr(cluster.get_node(n), "alive", False)
+                    for n in group_nodes):
+                return True
+            ready, pending = ray_tpu_torch.wait(
+                pending, num_returns=len(pending), timeout=0)
+            for ref in ready:
+                try:
+                    ray_tpu_torch.get(ref, timeout=1.0)
+                except RayTpuError as e:
+                    if _is_reshape_error(e):
+                        return True
+            if not pending or time.monotonic() > deadline:
+                return False
+            time.sleep(CONFIG.elastic_poll_s)
+
     def _drive(self, group: WorkerGroup,
                group_nodes: Set[str]) -> str:
         """Run result rounds until the loops finish ("done") or a grow
         reshape is due ("reshape"). Shrink is not decided here — a lost
-        worker raises ActorError out of the round and fit() reshapes."""
+        worker raises ActorError out of the round and fit() reshapes.
+        A round polls every rank (`group.world_size`: k a bundle)."""
         poll_s = CONFIG.elastic_poll_s
         budget = self._run_config.worker_poll_timeout
-        done = [False] * group.num_workers
+        done = [False] * group.world_size
         while not all(done):
             self._poll_events(group, group_nodes)
             if self._should_grow(group):
@@ -332,6 +373,13 @@ class _ElasticRun:
                             and time.monotonic() - round_start > budget):
                         raise TimeoutError(
                             f"no worker result within {budget}s")
+                except RayTpuError as e:
+                    if (not _is_reshape_error(e)
+                            and self._peer_lost(refs, group_nodes)):
+                        raise WorkerDiedError(
+                            f"a rank failed after its group lost a "
+                            f"peer: {e}") from e
+                    raise
             round_metrics: Optional[Dict[str, Any]] = None
             round_ckpt: Optional[bytes] = None
             first_live = live[0][0] if live else 0
@@ -376,10 +424,11 @@ class _ElasticRun:
             except TimeoutError as e:
                 error = error or e
                 break
-            group = WorkerGroup(world, trainer._scaling.worker_resources(),
-                                trainer._scaling.placement_strategy,
-                                bundles=None,
-                                name="elastic_train_worker_group")
+            group = WorkerGroup(
+                world, trainer._scaling.worker_resources(),
+                trainer._scaling.placement_strategy, bundles=None,
+                name="elastic_train_worker_group",
+                ranks_per_worker=trainer._scaling.ranks_per_worker())
             backend: Backend = trainer._backend_config.backend_cls()()
             final_world = world
             reshape = False
@@ -392,7 +441,7 @@ class _ElasticRun:
                 group_nodes = {n for n in node_ids if n}
                 backend.on_start(group, trainer._backend_config)
                 restore_arg = self._restore_ref()
-                shard_bytes = trainer._dataset_shards(world)
+                shard_bytes = trainer._dataset_shards(group.world_size)
                 ray_tpu_torch.get([
                     w.init_session.remote(fn_bytes, trainer._config,
                                           restore_arg, shard_bytes[i],
@@ -401,8 +450,9 @@ class _ElasticRun:
                 backend.on_training_start(group, trainer._backend_config)
                 self._grow_flush_requested = False
                 started = True
-                logger.info("elastic: training on %d worker(s) from "
-                            "step %d", world, self._last_step + 1)
+                logger.info("elastic: training on %d worker(s), %d "
+                            "rank(s), from step %d", world,
+                            group.world_size, self._last_step + 1)
                 if self._drive(group, group_nodes) == "done":
                     break
                 reshape = True          # grow

@@ -16,8 +16,9 @@ gloo with the cards hidden, `TorchConfig(platform="cpu")`):
   `ray_tpu.parallel.prepare_mesh(dp=4, devices=jax.devices()[:4])` (the
   forced CPU devices of `tests/conftest.py`), and the context and mesh
   hosts every rank saw in that run;
-- the refusals of the combinations the port does not run, and a Tune
-  trial of two ranks.
+- the elastic configuration of two-card workers, whose bounds count
+  workers, the refusal of a negative card count, and a Tune trial of
+  two ranks.
 
 The runtime fixtures are this file's own.
 """
@@ -220,10 +221,19 @@ def test_four_ranks_match_the_jax_dp4_mesh(four_rank_run):
     assert got[-1] < got[0]
 
 
-def test_elastic_refuses_workers_of_several_cards():
-    with pytest.raises(ValueError, match="item 26"):
+def test_elastic_accepts_workers_of_several_cards():
+    """An elastic group of two-card workers runs two ranks a worker, and
+    its bounds count workers (bundles), not ranks: a floor above the
+    worker count is refused even though it is below the rank count."""
+    s = ScalingConfig(num_workers=2, gpus_per_worker=2,
+                      elastic=ElasticConfig(min_workers=1, max_workers=2))
+    assert s.ranks_per_worker() == 2
+    assert s.worker_resources()["GPU"] == 2.0
+    assert (s.num_workers, s.elastic.min_workers,
+            s.elastic.max_workers) == (2, 1, 2)
+    with pytest.raises(ValueError, match="min_workers=3"):
         ScalingConfig(num_workers=2, gpus_per_worker=2,
-                      elastic=ElasticConfig())
+                      elastic=ElasticConfig(min_workers=3))
     with pytest.raises(ValueError, match="gpus_per_worker"):
         ScalingConfig(num_workers=2, gpus_per_worker=-1)
     # one card a worker stays elastic, one rank a worker
