@@ -28,9 +28,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      seed) through the port's EngineCore, five requests, one submitted
      mid-flight; every serving kernel must have launched during this
      phase, and one prompt's prefill logits must agree with
-     Transformer.apply; then torch.profiler splits an admission step
-     and the decode steps after it by kernel, and gives the decode
-     step's device idle share; then LLMEngine, the serving deployment
+     Transformer.apply; then LLMEngine, the serving deployment
      class, on the same weights: the same requests streamed over its
      push token stream must give EngineCore's greedy tokens (consumer
      TTFT and TPOT beside EngineCore's decode p50), a wrong incarnation
@@ -65,8 +63,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      `ray_tpu_torch.bench.train_step` (loss, backward, AdamW): 2 warm-up
      and 20 timed steps on a fixed batch (step time, and the host's
      time to enqueue a step), finite and falling loss, the launch counts
-     of every kernel per step, a torch.profiler split of one step with
-     its device idle share; then loss and backward under remat, full
+     of every kernel per step; then loss and backward under remat, full
      against save_attn (launch counts, bitwise equal loss and grads,
      each step's time);
   9. trainer: the same model, cut to its first TRAINER_LAYERS layers and
@@ -958,67 +955,6 @@ class TimedCore(EngineCore):
         return out
 
 
-# kernel classes of a training step, by name: first match wins
-KERNEL_CLASSES = (("flash", ("flash_",)),
-                  ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
-                  ("adamw", ("multi_tensor_apply",)),
-                  ("copy_cast", ("copy",)),
-                  ("other", ("",)))
-
-
-def kernel_table(prof, top: int = 10) -> tuple:
-    """(device ms summed over kernels, the top kernels by device time,
-    device ms by KERNEL_CLASSES)."""
-    from torch.autograd import DeviceType
-    # a user annotation (e.g. "Optimizer.step#AdamW.step") also shows on
-    # the device as a range over its kernels: counting it would count
-    # those kernels twice. (A kernel's own name may hold "#" too, as in
-    # "{lambda(int)#1}", so only the annotation's plain form is dropped.)
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not re.fullmatch(r"[\w.]+#[\w.]+", e.key)]
-    total = sum(ms for _, ms, _ in rows)
-    rows.sort(key=lambda r: -r[1])
-    classes = dict.fromkeys((c for c, _ in KERNEL_CLASSES), 0.0)
-    for name, ms, _ in rows:
-        cls = next(c for c, keys in KERNEL_CLASSES
-                   if any(k in name for k in keys))
-        classes[cls] += ms
-    return total, [{"kernel": name[:70], "ms": ms, "calls": n,
-                    "share": ms / total if total else None}
-                   for name, ms, n in rows[:top]], classes
-
-
-def profile_steps(core, prompts, decode_p50: float) -> dict:
-    """Where the device time goes: one admission step (two prefills, of
-    2,900 and 300 tokens, then a decode) and the five pure decode steps
-    after it, under torch.profiler. The profiler slows the host, so the
-    idle share of a decode step is taken against the unprofiled p50."""
-    from torch.profiler import ProfilerActivity, profile
-    core.submit(prompts["r3"], max_tokens=6, rid="prof-long")
-    core.submit(prompts["r1"], max_tokens=6, rid="prof-short")
-    out = {}
-    for phase in ("admit", "decode"):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            steps = 0
-            while core.has_work and (phase == "decode" or steps == 0):
-                core.step()
-                steps += 1
-            torch.cuda.synchronize()
-        busy, top, _ = kernel_table(prof)
-        out[phase] = {"steps": steps, "device_ms": busy, "top": top}
-    if out["decode"]["device_ms"] == 0:
-        out["decode"]["idle_share"] = "not measured (no device events)"
-    else:
-        per_step = out["decode"]["device_ms"] / out["decode"]["steps"]
-        out["decode"]["idle_share"] = max(0.0, 1 - per_step / decode_p50)
-    return out
-
-
 def serve_requests(cfg) -> tuple:
     """The serving schedule's requests: prompt lengths, new tokens and
     prompts (random tokens from seed 0) by request id."""
@@ -1138,8 +1074,6 @@ def serve(dev) -> dict:
 
     generated = sum(len(t) for t in tokens.values())
     decode_p50 = statistics.median(decode_ms)
-    log("serve profile: " + json.dumps(profile_steps(core, prompts,
-                                                     decode_p50)))
     out = {
         "requests": len(prompts), "steps": steps, "wall_s": wall,
         "generated_tokens": generated, "tokens_per_s": generated / wall,
@@ -1415,22 +1349,6 @@ def serving_counts() -> dict:
             "tokens": sum(m["tokens"].snapshot()["series"].values())}
 
 
-def step_profile(model, params, opt, batch, step_p50: float) -> dict:
-    """One training step under torch.profiler: kernel time by name, and
-    the device idle share against the unprofiled step p50."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        bench.train_step(model, params, opt, batch)
-        torch.cuda.synchronize()
-    busy, top, classes = kernel_table(prof, top=12)
-    idle = ("not measured (no device events)" if busy == 0
-            else max(0.0, 1 - busy / step_p50))
-    return {"device_ms": busy, "idle_share": idle, "by_class_ms": classes,
-            "top": top}
-
-
 def loss_and_grads(model, params, batch) -> tuple:
     leaves = bench.leaves(params)
     loss = model.loss(params, batch)
@@ -1689,7 +1607,6 @@ def train(dev, peaks) -> dict:
     tokens = TRAIN_B * TRAIN_S
     tok_per_s = tokens * TRAIN_STEPS / (sum(step_ms) / 1e3)
     mfu = tok_per_s * cfg.flops_per_token() / bench.detect_peak(dev)
-    profile = step_profile(model, params, opt, batch, p50)
 
     remat = remat_steps(cfg, params, batch)
     return {
@@ -1703,7 +1620,7 @@ def train(dev, peaks) -> dict:
         "tokens_per_s": tok_per_s, "mfu": mfu,
         "flops_per_token": cfg.flops_per_token(),
         "launches": launches, "launches_per_step": per_step,
-        "peak_mem_gib": peak_gib, "profile": profile,
+        "peak_mem_gib": peak_gib,
         "remat_steps": remat,
     }
 

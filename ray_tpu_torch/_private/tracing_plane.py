@@ -37,6 +37,18 @@ worker → object plane. This module provides the three pieces that can:
    one Perfetto process per runtime process, one lane per trace, and
    flow arrows stitching parent → child spans across processes.
 
+4. **The profiler bridge** — while a `torch.profiler` capture is
+   recording in this process, every :class:`span` also opens a
+   ``record_function`` range of its name, so the program's spans lie
+   on the device trace's clock beside the kernels they launch. The
+   bridge does not depend on the recorder: with ``RAY_TPU_TRACE=0`` a
+   span still becomes a range, and with no capture recording it costs
+   a dict lookup. ``span(..., profile=False)`` never becomes a range:
+   a profiler gives each kernel to the latest-started range open at its
+   launch on any thread, so a span on a thread that launches no device
+   work (a request thread waiting for a lock) would take the kernels
+   another thread launches meanwhile.
+
 Reference parity: the reference's opt-in opentelemetry wrapping
 (python/ray/util/tracing_utils) + task_event_buffer.cc execution-truth
 timestamps, collapsed into one runtime-owned plane; the export format
@@ -47,6 +59,7 @@ from __future__ import annotations
 import itertools
 import os
 import random
+import sys
 import threading
 import time
 from typing import Any, Iterator, Optional
@@ -77,6 +90,28 @@ def now() -> int:
     """Span timestamp: CLOCK_MONOTONIC ns (never wall clock — spans
     must subtract cleanly even when NTP steps the wall clock)."""
     return time.monotonic_ns()
+
+
+def profiling() -> bool:
+    """Whether a `torch.profiler` capture is recording in this process.
+    Read from `torch.autograd.profiler._is_profiler_enabled`, which the
+    capture sets for every thread; `torch._C._autograd.
+    _profiler_enabled()` reads False on a thread of a capture started
+    with `profile_all_threads`. A process that never imported torch
+    pays one dict lookup."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and bool(getattr(prof, "_is_profiler_enabled",
+                                             False))
+
+
+def _profiler_range(name: str):
+    """An entered `record_function` range named `name`, or None where no
+    capture is recording."""
+    if not profiling():
+        return None
+    rf = sys.modules["torch.autograd.profiler"].record_function(name)
+    rf.__enter__()
+    return rf
 
 
 # --------------------------------------------------------- recorder
@@ -264,22 +299,30 @@ class span:
     broadcast, user annotate) — otherwise the block runs untraced, so
     un-traced operations cost nothing beyond the `enabled` gate.
     Inside the block the current context is this span, so nested
-    runtime calls (and their wire messages) parent under it."""
+    runtime calls (and their wire messages) parent under it.
 
-    __slots__ = ("kind", "name", "ctx", "root", "extra",
-                 "_tid", "_sid", "_parent", "_t0", "_prev", "_on")
+    Whether or not it is recorded, the span is also a profiler range of
+    its name while a `torch.profiler` capture records (the bridge,
+    module docstring), unless ``profile=False``."""
+
+    __slots__ = ("kind", "name", "ctx", "root", "extra", "profile",
+                 "_tid", "_sid", "_parent", "_t0", "_prev", "_on", "_rf")
 
     def __init__(self, kind: str, name: str,
                  ctx: Optional[tuple] = None, root: bool = False,
-                 extra: Optional[dict] = None):
+                 extra: Optional[dict] = None, profile: bool = True):
         self.kind = kind
         self.name = name
         self.ctx = ctx
         self.root = root
         self.extra = extra
+        self.profile = profile
         self._on = False
+        self._rf = None
 
     def __enter__(self) -> Optional[tuple]:
+        if self.profile:
+            self._rf = _profiler_range(self.name)
         if not enabled():
             return None
         cur = self.ctx if self.ctx is not None else current()
@@ -296,11 +339,12 @@ class span:
         return (self._tid, self._sid)
 
     def __exit__(self, *exc) -> None:
-        if not self._on:
-            return
-        _tls.ctx = self._prev
-        record(self.kind, self.name, self._t0, now(), self._tid,
-               self._sid, self._parent, self.extra)
+        if self._on:
+            _tls.ctx = self._prev
+            record(self.kind, self.name, self._t0, now(), self._tid,
+                   self._sid, self._parent, self.extra)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
 
 
 # ------------------------------------------------------- collection
@@ -348,7 +392,10 @@ def fanout_dumps(targets: list, timeout_s: float,
 def dump() -> dict:
     """This process's recorder contents + clock sample, shaped for the
     ``trace_dump`` pull protocol (heartbeats carry only watermarks; the
-    events move only when a collector asks)."""
+    events move only when a collector asks). `now_ns` (CLOCK_MONOTONIC,
+    the spans' clock) and `wall_ns` (`time.time_ns`, the clock of a
+    `torch.profiler` trace) are read back to back, so `wall_ns - now_ns`
+    places the recorder's spans on a profiler trace's clock."""
     rec = recorder()
     return {
         "role": _role, "name": _role_name, "pid": os.getpid(),
@@ -357,6 +404,7 @@ def dump() -> dict:
         "dropped": rec.dropped(),
         "capacity": rec.capacity,
         "now_ns": now(),
+        "wall_ns": time.time_ns(),
     }
 
 

@@ -21,6 +21,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import tracing_plane as _tp
 from ray_tpu_torch.models.config import TransformerConfig, tiny
 from ray_tpu_torch.models.transformer import Params, Transformer
 from ray_tpu_torch.ops.dispatch import resolve_device
@@ -72,18 +73,33 @@ def make_optimizer(params: Params) -> torch.optim.Optimizer:
                              weight_decay=1e-4)
 
 
+# the trace the training steps' spans join where no caller's is active
+_TRAIN_TRACE = (_tp.new_id(), 0)
+
+
 def train_step(model: Transformer, params: Params,
                opt: torch.optim.Optimizer, batch) -> torch.Tensor:
     """One step: loss, backward, AdamW update (in place). Returns the
     loss, detached; it does not wait for the card. Under a mesh the
     parameters are DTensors, whose gradients are first summed onto their
-    placements (`sync_grads`)."""
+    placements (`sync_grads`).
+
+    Its three phases are spans (`_private/tracing_plane.py`) and, while
+    a `torch.profiler` capture records, ranges: `train.loss:<tokens>`,
+    `train.backward` (with `sync_grads`) and `train.optimizer`, inside
+    which torch's own `Optimizer.step#AdamW.step` range opens. They
+    join the caller's trace, or one trace for the process's steps."""
+    ctx = _tp.current() or _TRAIN_TRACE
     opt.zero_grad(set_to_none=True)
-    loss = model.loss(params, batch)
-    loss.backward()
-    if model.mesh is not None:
-        sync_grads(params)
-    opt.step()
+    with _tp.span("train", f"train.loss:{batch['tokens'].numel()}",
+                  ctx=ctx):
+        loss = model.loss(params, batch)
+    with _tp.span("train", "train.backward", ctx=ctx):
+        loss.backward()
+        if model.mesh is not None:
+            sync_grads(params)
+    with _tp.span("train", "train.optimizer", ctx=ctx):
+        opt.step()
     return loss.detach()
 
 

@@ -12,6 +12,14 @@ the tokens that drop are the JAX package's; they ride the residual.
 Parity property used by tests: with every expert holding the same
 weights, normalised top-k routing makes the MoE block exactly equal to
 its dense FFN (Σ w_k · F(x) = F(x)) while nothing drops.
+
+`moe_ffn`'s four phases are spans (`_private/tracing_plane.py`):
+`moe.route`, `moe.dispatch`, `moe.experts`, `moe.combine`. They are
+profiler ranges only while grad mode is on (a training forward, and
+remat's recompute in the backward), so no range opens inside a serving
+step, which runs under `inference_mode`. Every call also adds its kept
+and assigned top-k slots to a tally on the device, without a host sync:
+`drop_tally(device)` reads it, `reset_drop_tally()` clears it.
 """
 from __future__ import annotations
 
@@ -22,7 +30,40 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch._private import tracing_plane as _tp
 from ray_tpu_torch.parallel import collectives
+
+# device -> int64 (kept, assigned) top-k slots, summed over every call
+_tallies: Dict[torch.device, torch.Tensor] = {}
+
+
+def _add_to_tally(kept: torch.Tensor, assigned: int) -> None:
+    t = _tallies.get(kept.device)
+    if t is None:
+        # a normal tensor even under inference_mode, so that calls under
+        # and outside it can both add to it
+        with torch.inference_mode(False):
+            t = _tallies.setdefault(kept.device, torch.zeros(
+                2, dtype=torch.int64, device=kept.device))
+    t[0] += kept
+    t[1] += assigned
+
+
+def drop_tally(device) -> Dict[str, int]:
+    """The top-k slots `moe_ffn` dropped at capacity and those it
+    assigned on `device`, summed over every call since the last reset
+    (remat's recompute counts a forward again, both counts alike). One
+    host sync."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    t = _tallies.get(device)
+    kept, assigned = (0, 0) if t is None else t.tolist()
+    return {"dropped": assigned - kept, "assigned": assigned}
+
+
+def reset_drop_tally() -> None:
+    _tallies.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,38 +127,47 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor,
     T = b * s
     C = expert_capacity(T, E, top_k, capacity_factor)
     cdtype = x.dtype
+    ranges = torch.is_grad_enabled()
 
-    xf = x.reshape(T, d)
-    logits = (xf @ router_w.to(cdtype)).to(torch.float32)     # (T, E)
-    if router_jitter and generator is not None:
-        logits = logits + router_jitter * torch.randn(
-            logits.shape, generator=generator, device=logits.device)
-    probs, top_p, assign, keep, disp = route(logits, top_k, C)
-    combine = (disp.to(torch.float32)
-               * top_p[:, :, None, None]).sum(1)              # (T, E, C)
-    dispatch = disp.sum(1).to(cdtype)                         # (T, E, C)
+    with _tp.span("moe", "moe.route", profile=ranges):
+        xf = x.reshape(T, d)
+        logits = (xf @ router_w.to(cdtype)).to(torch.float32)  # (T, E)
+        if router_jitter and generator is not None:
+            logits = logits + router_jitter * torch.randn(
+                logits.shape, generator=generator, device=logits.device)
+        probs, top_p, assign, keep, disp = route(logits, top_k, C)
+        combine = (disp.to(torch.float32)
+                   * top_p[:, :, None, None]).sum(1)          # (T, E, C)
+        dispatch = disp.sum(1).to(cdtype)                     # (T, E, C)
 
     # expert inputs: tokens (row-split) -> expert-major (ep-split); the
     # constraint's redistribute is the all-to-all.
-    ein = torch.einsum("tec,td->ecd", dispatch, xf)           # (E, C, d)
-    if constrain is not None:
-        ein = constrain(ein, ("experts", "expert_capacity", "embed"))
-    h = F.silu(torch.einsum("ecd,edf->ecf", ein, gate_w.to(cdtype)))
-    h = h * torch.einsum("ecd,edf->ecf", ein, up_w.to(cdtype))
-    if constrain is not None:
-        h = constrain(h, ("experts", "expert_capacity", "mlp"))
-    eout = torch.einsum("ecf,efd->ecd", h, down_w.to(cdtype))
-    if constrain is not None:
-        eout = constrain(eout, ("experts", "expert_capacity", "embed"))
+    with _tp.span("moe", "moe.dispatch", profile=ranges):
+        ein = torch.einsum("tec,td->ecd", dispatch, xf)       # (E, C, d)
+        if constrain is not None:
+            ein = constrain(ein, ("experts", "expert_capacity", "embed"))
+    with _tp.span("moe", "moe.experts", profile=ranges):
+        h = F.silu(torch.einsum("ecd,edf->ecf", ein, gate_w.to(cdtype)))
+        h = h * torch.einsum("ecd,edf->ecf", ein, up_w.to(cdtype))
+        if constrain is not None:
+            h = constrain(h, ("experts", "expert_capacity", "mlp"))
+        eout = torch.einsum("ecf,efd->ecd", h, down_w.to(cdtype))
+        if constrain is not None:
+            eout = constrain(eout, ("experts", "expert_capacity", "embed"))
 
-    y = torch.einsum("tec,ecd->td", combine.to(cdtype), eout)
-    y = y.reshape(b, s, d)
+    with _tp.span("moe", "moe.combine", profile=ranges):
+        y = torch.einsum("tec,ecd->td", combine.to(cdtype), eout)
+        y = y.reshape(b, s, d)
 
-    # Aux: switch-style load-balance loss + routing stats.
+    # Aux: switch-style load-balance loss + routing stats. Each kept
+    # (token, choice) slot is one 1 of `dispatch` (a token's top-k
+    # experts are distinct), so the kept share is keep's.
     frac_tokens = assign[:, 0, :].to(torch.float32).mean(dim=0)
     frac_probs = probs.mean(dim=0)
     lb_loss = E * (frac_tokens * frac_probs).sum()
-    dropped = 1.0 - dispatch.to(torch.float32).sum() / (T * top_k)
+    kept = keep.sum()
+    _add_to_tally(kept, T * top_k)
+    dropped = 1.0 - kept / (T * top_k)
     return y, {"moe_load_balance_loss": lb_loss,
                "moe_dropped_fraction": dropped}
 

@@ -17,9 +17,21 @@ device=...)`.
 
 `LLMEngine` wraps a core with a step thread, polled token buffers,
 drain, the TTFT/TPOT histograms and the push `TokenStreamServer`.
+
+Spans (`_private/tracing_plane.py`), one trace per `LLMEngine` unless
+the caller's context is active: on the step thread `llm.step:<running>:
+<waiting>` (the wait for the lock, the core's step, the buffers and the
+publish), and inside it, in `EngineCore.step`, `llm.prefill:<length>`
+and `llm.decode:<rows>:<sum of contexts>` around the two calls into the
+model, each also a profiler range while a capture records. Every other
+thread's wait for the engine's lock is `llm.lock_wait.<caller>`, in the
+flight recorder only (`profile=False`): a range open on a request thread
+would take the kernels the step thread launches meanwhile. No span opens
+inside `_prefill` or `_decode`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -32,6 +44,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import tracing_plane as _tp
 from ray_tpu_torch._private.config import CONFIG
 from ray_tpu_torch._private.metrics_plane import serving_metrics
 from ray_tpu_torch.models import decode as _dec
@@ -286,7 +299,8 @@ class EngineCore:
             if seq.admit_t is None:        # first admission only
                 seq.admit_t = now
                 self._queue_waits.append((now, now - seq.submit_t))
-            token = self._prefill(seq, toks)
+            with _tp.span("llm", f"llm.prefill:{len(toks)}"):
+                token = self._prefill(seq, toks)
             self._running.append(seq)
             self.counters["admitted"] += 1
             self._emit(events, seq, token)
@@ -327,7 +341,9 @@ class EngineCore:
             positions[i] = seq.total_len - 1
             pts[i] = self._page_table(seq)
             active[i] = True
-        next_tokens = self._decode(tokens, positions, pts, active)
+        contexts = sum(s.total_len for s in batch)
+        with _tp.span("llm", f"llm.decode:{len(batch)}:{contexts}"):
+            next_tokens = self._decode(tokens, positions, pts, active)
         for i, seq in enumerate(batch):
             self._emit(events, seq, int(next_tokens[i]))
         return events
@@ -442,6 +458,8 @@ class LLMEngine:
         if self._ranks is not None:
             self._ranks.start()
         self.incarnation = uuid.uuid4().hex[:8]
+        # the trace this engine's spans join where no caller's is active
+        self._trace = _tp.current() or (_tp.new_id(), 0)
         self._lock = threading.Lock()        # core + buffers
         self._cond = threading.Condition(self._lock)
         # rid -> {"toks": [...], "done", "reason", "err", "t_done",
@@ -507,9 +525,13 @@ class LLMEngine:
                     self._kick.wait(0.05)
                     self._kick.clear()
                     continue
-                with self._lock:
-                    events = self.core.step()
-                    self._ingest(events)
+                core = self.core
+                with _tp.span("llm", f"llm.step:{len(core._running)}:"
+                                     f"{len(core._waiting)}",
+                              ctx=self._trace):
+                    with self._lock:
+                        events = core.step()
+                        self._ingest(events)
                 delay = CONFIG.llm_step_delay_s
                 if delay > 0:               # chaos pacing, 0 in production
                     time.sleep(delay)
@@ -572,9 +594,22 @@ class LLMEngine:
         for rid in dead:
             self._buf.pop(rid, None)
 
+    @contextlib.contextmanager
+    def _locked(self, caller: str):
+        """`self._lock` held, taken off the step thread: the wait for it
+        is the span `llm.lock_wait.<caller>`, which ends when the lock is
+        held and is never a profiler range."""
+        with _tp.span("llm", "llm.lock_wait." + caller,
+                      ctx=_tp.current() or self._trace, profile=False):
+            self._lock.acquire()
+        try:
+            yield
+        finally:
+            self._lock.release()
+
     def _backlog(self, rid: str, cursor: int) -> Optional[dict]:
         """Stream-subscribe replay: everything from `cursor` on."""
-        with self._lock:
+        with self._locked("backlog"):
             b = self._buf.get(rid)
             if b is None:
                 return None
@@ -598,7 +633,7 @@ class LLMEngine:
         """Accept one generation; tokens arrive via the push stream
         (subscribe at `stream` with `rid`) or next_tokens polling."""
         submit_t = time.monotonic()
-        with self._lock:
+        with self._locked("generate"):
             self.check_health()
             rid = self.core.submit(prompt, max_tokens=max_tokens,
                                    stop=stop, rid=rid, attempt=attempt,
@@ -620,7 +655,7 @@ class LLMEngine:
         client busy-polling."""
         wait_s = CONFIG.llm_stream_wait_s if wait_s is None else wait_s
         deadline = time.monotonic() + max(0.0, wait_s)
-        with self._cond:
+        with self._locked("next_tokens"):
             while True:
                 b = self._buf.get(rid)
                 if b is None:
@@ -643,7 +678,7 @@ class LLMEngine:
                 self._cond.wait(remaining)
 
     def cancel(self, rid: str) -> bool:
-        with self._lock:
+        with self._locked("cancel"):
             self._buf.pop(rid, None)
             return self.core.cancel(rid)
 
@@ -652,7 +687,7 @@ class LLMEngine:
         descriptors. Subscribers see a terminal 'drained' frame and fail
         over; the descriptors carry emitted tokens so the survivor
         resumes mid-generation."""
-        with self._lock:
+        with self._locked("drain"):
             descs = self.core.drain()
             now = time.monotonic()
             drained_events = []
@@ -672,7 +707,7 @@ class LLMEngine:
         return descs
 
     def engine_stats(self) -> dict:
-        with self._lock:
+        with self._locked("stats"):
             st = self.core.stats()
         st["incarnation"] = self.incarnation
         st["stream"] = self._stream.addr if self._stream else None
@@ -704,7 +739,7 @@ class LLMEngine:
     def __serve_stats__(self) -> dict:
         """Merged into a replica's pushed report: the queue-latency p95
         that latency-target autoscaling reads."""
-        with self._lock:
+        with self._locked("stats"):
             return {"queue_wait_p95": self.core.queue_wait_p95(),
                     "outstanding_tokens": self.core.outstanding_tokens()}
 

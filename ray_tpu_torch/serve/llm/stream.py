@@ -47,8 +47,6 @@ STREAM_STATS = {
     "frames_in": 0,         # client: token frames received
     "tokens_in": 0,         # client: tokens accepted
     "zombie_dropped": 0,    # client: frames fenced (stale inc/attempt)
-    "conn_drops": 0,        # client: stream connections lost
-    "subscribes": 0,        # client: llm_sub frames sent
 }
 
 
@@ -262,7 +260,6 @@ class StreamClient:
         try:
             conn.send({"type": "llm_sub", "req": rid,
                        "cursor": int(cursor)})
-            STREAM_STATS["subscribes"] += 1
         except protocol.ConnectionClosed:
             with self._lock:
                 self._routes.pop(rid, None)
@@ -299,7 +296,6 @@ class StreamClient:
         sink.put(msg)
 
     def _on_close(self, conn) -> None:
-        STREAM_STATS["conn_drops"] += 1
         with self._lock:
             dead = [a for a, c in self._conns.items() if c is conn]
             for a in dead:

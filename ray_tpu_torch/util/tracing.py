@@ -16,9 +16,12 @@ Port of `ray_tpu/util/tracing.py`. Parity: reference util/tracing
   cross-process spans — see its docstring.)
 
 * :func:`annotate` / :func:`annotate_fn` — named user spans. These
-  land BOTH as an NVTX range (seen by a CUDA profiler and by a
-  `torch.profiler` capture) and in the flight recorder, so user code
-  shows up on the same task_timeline() as the runtime's own spans.
+  land in the flight recorder, so user code shows up on the same
+  task_timeline() as the runtime's own spans, and, being tracing-plane
+  spans, as a `torch.profiler` range while a capture records (the
+  plane's bridge). On a card each is also an NVTX range, for Nsight
+  Systems: a `torch.profiler` capture records no NVTX range (torch
+  2.11 on an H100: a range pushed around a matmul left no event).
 
 * :func:`profile` — the device-level `torch.profiler` capture (CUDA
   kernels, host ops), written as a Chrome trace under `log_dir`;
@@ -65,8 +68,9 @@ def profile(log_dir: str) -> Iterator[None]:
 def annotate(name: str) -> Iterator[None]:
     """Named span: lands in the flight recorder (so it shows on
     task_timeline() next to the runtime's spans, joining the ambient
-    trace when called inside a traced task, else starting its own)
-    AND as an NVTX range on the card; near-zero cost when tracing is
+    trace when called inside a traced task, else starting its own), as
+    a `torch.profiler` range while a capture records, and as an NVTX
+    range on the card (for Nsight); near-zero cost when tracing is
     disabled and no card is in use. A process that never imported
     torch only records the span."""
     from ray_tpu_torch._private import tracing_plane as _tp

@@ -7,9 +7,13 @@ port's engine, and the two engines, given the same `tiny()` weights
 `params_from_jax`), return the same greedy tokens. Also here: the
 polled-only engine under `RAY_TPU_LLM_STREAM=0`, the serving
 histograms, what the engine refuses, and a step that raises ending every
-open request instead of leaving its consumers waiting.
+open request instead of leaving its consumers waiting; and the engine's
+spans: the step thread's are `torch.profiler` ranges that enclose the
+benchmark's own, the waits for the lock are recorded and never ranges.
 """
+import os
 import queue
+import sys
 import time
 
 import jax
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from ray_tpu.serve.llm.engine import LLMEngine as JLLMEngine
+from ray_tpu_torch._private import tracing_plane as tp
 from ray_tpu_torch._private.config import CONFIG
 from ray_tpu_torch._private.metrics_plane import serving_metrics
 from ray_tpu_torch.models.config import tiny
@@ -26,6 +31,9 @@ from ray_tpu_torch.serve.llm import LLMEngine, STREAM_STATS, stream_client
 from ray_tpu_torch.serve.llm.engine import FINISH_DRAINED, FINISH_LENGTH
 from ray_tpu_torch.serve.llm.stream import TokenStreamServer
 from ray_tpu_torch.util.metrics import DEFAULT_REGISTRY
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_profiler_ranges import base, user_ranges  # noqa: E402
 
 WAIT_S = 10.0
 ENGINE = dict(num_pages=32, page_size=8, max_batch=4)
@@ -335,6 +343,99 @@ def test_close_ends_every_thread_and_frees_the_engine():
     assert not names & {"llm-engine-step", "llm-stream-accept"}, names
     # the closed connections' readers exit as their sockets shut down
     _wait_for(lambda: gc.collect() >= 0 and ref() is None)
+
+
+# ------------------------------------------------------------- spans
+@pytest.fixture
+def traced(monkeypatch):
+    """The tracing plane on, as by default."""
+    monkeypatch.delenv("RAY_TPU_TRACE", raising=False)
+    monkeypatch.delenv("RAY_TPU_TRACE_RING", raising=False)
+    CONFIG.reload()
+    yield
+    monkeypatch.undo()
+    CONFIG.reload()
+
+
+def _serve_under_capture(eng, harness_spans=True):
+    """Three requests of different lengths, each read off the push
+    stream to its end, under the benchmark's capture, with the
+    benchmark's own ranges around the core's step and model calls
+    (`gpubench.serving.install_spans`): (the ranges, the recorder's
+    events of this serving)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from gpubench.serving import install_spans
+    undo = install_spans(eng.core) if harness_spans else (lambda: None)
+    base = tp.recorder().watermark()
+
+    def serve():
+        sinks = []
+        for i, n in enumerate((5, 11, 3)):
+            acc = eng.generate(list(range(1, n + 1)), max_tokens=4,
+                               rid=f"s{i}")
+            sink = queue.Queue()
+            assert stream_client().subscribe(
+                acc["stream"], acc["rid"], acc["incarnation"], 0, 0, sink)
+            sinks.append(sink)
+        for sink in sinks:
+            _consume(sink)
+    try:
+        ranges = user_ranges(serve)
+    finally:
+        undo()
+    events = tp.recorder().snapshot()[-(tp.recorder().watermark() - base):]
+    return ranges, events
+
+
+def test_program_ranges_enclose_the_harness_ranges(engine, traced):
+    """`llm.step` encloses `engine.step`, `llm.prefill:<n>` encloses
+    `model.prefill:<n>` and `llm.decode:<rows>:<contexts>` encloses
+    `model.decode` of the same rows and contexts: the program's ranges
+    open first and close last, so the harness's stay innermost."""
+    ranges, _ = _serve_under_capture(engine)
+    pairs = {"engine.step": "llm.step", "model.prefill": "llm.prefill",
+             "model.decode": "llm.decode"}
+    seen = set()
+    for name, s, e in ranges:
+        outer = pairs.get(base(name))
+        if outer is None:
+            continue
+        seen.add(base(name))
+        params = name.split(":")[1:]
+        assert any(base(n) == outer and os_ <= s and e <= oe
+                   and (outer == "llm.step" or n.split(":")[1:] == params)
+                   for n, os_, oe in ranges), name
+    assert seen == set(pairs)
+
+
+def test_no_program_range_opens_inside_the_model_calls(engine, traced):
+    """Rule (b): nothing opens a range, on any thread, while the core is
+    inside `_prefill` or `_decode` (a range opened there would take the
+    kernels of `model.prefill` / `model.decode`)."""
+    ranges, _ = _serve_under_capture(engine)
+    model = [(s, e) for n, s, e in ranges if n.startswith("model.")]
+    assert model
+    inner = [n for n, s, _e in ranges for ms, me in model if ms < s < me]
+    assert inner == []
+
+
+def test_lock_waits_are_recorded_but_never_ranges(engine, traced):
+    """Rule (a): the waits for the engine's lock in `generate` and in the
+    stream's subscribe are in the flight recorder, under the engine's
+    trace, and not in the capture; the step thread's spans are in
+    both."""
+    ranges, events = _serve_under_capture(engine, harness_spans=False)
+    names = {e[4] for e in events}
+    assert {"llm.lock_wait.generate", "llm.lock_wait.backlog"} <= names
+    assert not [n for n, _s, _e in ranges if n.startswith("llm.lock_wait")]
+    assert {"llm.step", "llm.prefill", "llm.decode"} <= {
+        base(n) for n, _s, _e in ranges}
+    llm = [e for e in events if e[4].startswith("llm.")]
+    assert {e[0] for e in llm} == {engine._trace[0]}
+    waits = [e for e in llm if e[4].startswith("llm.lock_wait")]
+    assert all(e[6] >= e[5] for e in waits)
 
 
 def test_engine_refuses_what_the_port_lacks():

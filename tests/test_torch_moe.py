@@ -2,7 +2,8 @@
 MoE Transformer, held to the JAX package: `moe_ffn` on the same numpy
 inputs (output, aux and which tokens each expert took), twins of the MoE
 cases of `tests/test_models.py`, and the MoE model's loss and grads
-against `jax.value_and_grad`. All f32, at tiny() size."""
+against `jax.value_and_grad`. All f32, at tiny() size. Also the port's
+own: the drop tally on the device and the layer's phase ranges."""
 import dataclasses
 import os
 import sys
@@ -86,6 +87,54 @@ def test_moe_ffn_matches_jax_with_the_same_kept_tokens(capacity_factor,
         assert rows_t == rows_j
     if capacity_factor < 1:
         assert float(aux["moe_dropped_fraction"]) > 0.1
+
+
+def test_drop_tally_equals_the_dispatch_sum_fraction():
+    """The dropped fraction is 1 - kept slots / (T k), and the device
+    tally adds the same kept and assigned slots on every call: on a case
+    that drops, both equal the fraction the one-hot dispatch's sum gives
+    (each kept slot is one 1 of it), and a second call doubles the
+    tally without changing its share."""
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.models.moe import route
+    args = tuple(map(torch.as_tensor, _moe_inputs(0, skew=5.0)))
+    x, router = args[0], args[1]
+    T, k = x.shape[0] * x.shape[1], 2
+    C = expert_capacity(T, router.shape[-1], k, 0.25)
+    logits = x.reshape(T, -1) @ router
+    disp = route(logits.to(torch.float32), k, C)[4]
+    want = 1.0 - float(disp.sum(1).to(torch.float32).sum()) / (T * k)
+    assert want > 0.1
+    moe.reset_drop_tally()
+    _, aux = moe_ffn(*args, top_k=k, capacity_factor=0.25)
+    assert float(aux["moe_dropped_fraction"]) == pytest.approx(want,
+                                                               abs=1e-7)
+    tally = moe.drop_tally("cpu")
+    assert tally["assigned"] == T * k
+    assert tally["dropped"] == round(want * T * k)
+    with torch.inference_mode():
+        moe_ffn(*args, top_k=k, capacity_factor=0.25)
+    assert moe.drop_tally("cpu") == {"dropped": 2 * tally["dropped"],
+                                     "assigned": 2 * T * k}
+    moe.reset_drop_tally()
+    assert moe.drop_tally("cpu") == {"dropped": 0, "assigned": 0}
+
+
+def test_moe_phases_are_ranges_only_under_grad():
+    """`moe.route`, `moe.dispatch`, `moe.experts` and `moe.combine` are
+    profiler ranges, in order, while grad mode is on; under
+    `inference_mode` (a serving step) none opens."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_profiler_ranges import user_ranges
+    args = tuple(map(torch.as_tensor, _moe_inputs(1)))
+
+    def call():
+        moe_ffn(*args, top_k=2, capacity_factor=1.25)
+
+    assert [n for n, _s, _e in user_ranges(call)] == [
+        "moe.route", "moe.dispatch", "moe.experts", "moe.combine"]
+    with torch.inference_mode():
+        assert user_ranges(call) == []
 
 
 def test_moe_capacity_drops_tokens():

@@ -11,20 +11,27 @@ Done-criteria mirrored from r9:
 - disabled mode records nothing and adds no envelope bytes
 - the Perfetto JSON is valid: every flow arrow has begin AND end
 
-The port's twin of `tests/test_tracing_plane.py`, case for case.
+The port's twin of `tests/test_tracing_plane.py`, case for case, and
+the port's own bridge: a span is a `torch.profiler` range while a
+capture records, unless `profile=False`.
 """
 import json
 import os
 import socket
+import sys
 import threading
 import time
 
 import numpy as np
 import pytest
+import torch
 
 import ray_tpu_torch
 from ray_tpu_torch._private import protocol, tracing_plane as tp, wire
 from ray_tpu_torch._private.config import CONFIG
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_profiler_ranges import user_ranges  # noqa: E402
 
 
 @pytest.fixture(params=["native", "python"])
@@ -140,6 +147,87 @@ def test_annotate_lands_in_recorder(tracing_on):
     evs = [e for e in rec.snapshot() if e[4] == "my_phase"]
     assert evs and evs[-1][3] == "user"
     assert rec.watermark() == base + 1
+
+
+# ------------------------------------------- the profiler bridge
+def _span_in_two_threads(name, **kw):
+    """The span `name` on this thread and, nested, on a second one."""
+    def body():
+        with tp.span("user", name, root=True, **kw):
+            torch.ones(4).add_(1)
+
+    def run():
+        th = threading.Thread(target=body)
+        with tp.span("user", name + ".main", root=True, **kw):
+            th.start()
+            th.join()
+    return run
+
+
+@pytest.mark.parametrize("trace", ["1", "0"])
+def test_span_is_a_profiler_range_on_every_thread(tracing_on, trace):
+    """Under the harness's capture (`profile_all_threads`) a span is a
+    user annotation of its name on the thread that opened it, whether
+    or not the recorder records (`RAY_TPU_TRACE=0` too); the recorder
+    keeps it only when tracing is on."""
+    os.environ["RAY_TPU_TRACE"] = trace
+    CONFIG.reload()
+    base = tp.recorder().watermark()
+    got = [n for n, _s, _e in user_ranges(_span_in_two_threads("bridge"))]
+    assert got == ["bridge.main", "bridge"]
+    names = [e[4] for e in tp.recorder().snapshot()]
+    assert ("bridge" in names) == (trace == "1")
+    assert tp.recorder().watermark() - base == (2 if trace == "1" else 0)
+
+
+def test_no_record_function_unless_a_capture_records(tracing_on,
+                                                      monkeypatch):
+    """A `profile=False` span never enters a `record_function`, nor does
+    any span while no capture records (then it costs a lookup)."""
+    import torch.autograd.profiler as ap
+    entered = []
+    real = ap.record_function
+
+    class Spy(real):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+
+    monkeypatch.setattr(ap, "record_function", Spy)
+    assert not tp.profiling()
+    with tp.span("user", "off", root=True):
+        pass
+    assert entered == []
+    got = user_ranges(_span_in_two_threads("hidden", profile=False))
+    assert entered == [] and got == []
+    assert {"hidden", "hidden.main"} <= {e[4] for e in
+                                         tp.recorder().snapshot()}
+    user_ranges(_span_in_two_threads("shown"))
+    assert entered == ["shown.main", "shown"]
+
+
+def test_annotate_is_a_profiler_range(tracing_on):
+    """`util.tracing.annotate` reaches a `torch.profiler` capture through
+    the bridge (on the CPU it pushes no NVTX range, and a capture would
+    not record one)."""
+    from ray_tpu_torch.util import tracing
+
+    def body():
+        with tracing.annotate("my_annotated_phase"):
+            torch.ones(2).add_(1)
+    assert [n for n, _s, _e in user_ranges(body)] == ["my_annotated_phase"]
+
+
+def test_dump_reads_the_wall_clock_beside_the_monotonic(tracing_on):
+    """`dump()`'s `wall_ns - now_ns` maps a recorded span onto the wall
+    clock a profiler trace is stamped with."""
+    with tp.span("user", "placed", root=True):
+        wall0 = time.time_ns()
+        time.sleep(0.01)
+    d = tp.dump()
+    ev = [e for e in d["events"] if e[4] == "placed"][-1]
+    assert d["wall_ns"] - time.time_ns() <= 0
+    assert abs(ev[5] + (d["wall_ns"] - d["now_ns"]) - wall0) < 5_000_000
 
 
 # ------------------------------------------------------------ wire

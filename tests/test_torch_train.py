@@ -8,9 +8,12 @@ forward and backward; the JAX model runs its reference attention, as
 its own CPU tests do. These are the cases of `tests/test_models.py`
 (`test_forward_shapes_and_loss`, `test_grad_step_decreases_loss`,
 `test_loss_mask`, `test_chunked_loss_matches_dense`,
-`test_tied_embeddings`) run on both sides.
+`test_tied_embeddings`) run on both sides. Also the port's own: the
+train step's phases as `torch.profiler` ranges.
 """
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -251,6 +254,38 @@ def test_three_adamw_steps_match_optax():
     for key, t in zip(_names(params), bench.leaves(params)):
         np.testing.assert_allclose(t.detach().numpy(), np.asarray(want[key]),
                                    atol=1e-6, rtol=0, err_msg=key)
+
+
+def test_train_step_phases_are_ranges_in_order():
+    """`bench.train_step` opens `train.loss:<tokens>`, `train.backward`
+    and `train.optimizer` one after another, and torch's own
+    `Optimizer.step#AdamW.step` lies within `train.optimizer`; under
+    remat an MoE layer's phases open again inside `train.backward`."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_profiler_ranges import base, user_ranges
+    cfg = dataclasses.replace(tiny(), moe_num_experts=4, moe_top_k=2,
+                              remat=True)
+    model = Transformer(cfg)
+    params = model.init(0, device="cpu")
+    opt = bench.make_optimizer(params)
+    tokens = torch.from_numpy(_batch(3)["tokens"])
+    ranges = user_ranges(
+        lambda: bench.train_step(model, params, opt, {"tokens": tokens}))
+    phase = {base(n): (s, e) for n, s, e in ranges
+             if n.startswith("train.")}
+    assert [n for n, _s, _e in ranges if n.startswith("train.")] == [
+        f"train.loss:{tokens.numel()}", "train.backward", "train.optimizer"]
+    assert phase["train.loss"][1] <= phase["train.backward"][0]
+    assert phase["train.backward"][1] <= phase["train.optimizer"][0]
+    adamw = [(s, e) for n, s, e in ranges
+             if n == "Optimizer.step#AdamW.step"]
+    lo, hi = phase["train.optimizer"]
+    assert len(adamw) == 1 and lo <= adamw[0][0] <= adamw[0][1] <= hi
+    routes = [s for n, s, _e in ranges if n == "moe.route"]
+    n_layers = cfg.n_layers
+    assert len(routes) == 2 * n_layers
+    lo, hi = phase["train.backward"]
+    assert sum(lo <= s <= hi for s in routes) == n_layers
 
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
