@@ -13,7 +13,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      at the main paths' shapes and ragged ones (the forward over
      FWD_CASES, the backward over BWD_CASES: every edge of their tiles),
      with stated tolerances; two launches of the forward and of the
-     backward kernels give the same bits;
+     backward kernels give the same bits; the paged decode kernel over
+     PAGED_CASES (outputs, both caches after its K/V write, and the same
+     bits from two launches);
      the flash autograd Function against autograd through
      `mha_reference`; a 2-layer model at the training width, its loss
      and grads in bf16 on the card against f32 on the CPU; a shape a
@@ -249,6 +251,8 @@ from ray_tpu_torch.ops.attention import (_bwd_kernels, _flash_bwd_cuda,
                                          flash_attention_reference,
                                          mha_reference)
 from ray_tpu_torch.ops.norms import rms_norm, rms_norm_reference
+from ray_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                            paged_decode_attention_reference)
 from ray_tpu_torch.serve.llm import LLMEngine, STREAM_STATS, stream_client
 from ray_tpu_torch.serve.llm.engine import (FINISH_DRAINED, FINISH_LENGTH,
                                             FINISH_STOP, EngineCore)
@@ -264,6 +268,9 @@ EPS = 1e-5                                # llama3-8b norm_eps
 D_MODEL, HEADS, KV_HEADS, HEAD_DIM = 4096, 32, 8, 128
 S_MAIN = 2048                             # prefill bucket timed
 DECODE_ROWS = 8                           # EngineCore max_batch
+# paged decode timing: the chat cell's mean context (its 256 rows at
+# ~1,064 positions, ROADMAP / PERF.md), and serve()'s 8 rows at 2,048
+PAGED_CHAT_CONTEXT, PAGED_ROWS8_CONTEXT = 1064, 2048
 # bench.py's training shape: batch, seq, heads (MHA), d_model
 TRAIN_B, TRAIN_S, TRAIN_HEADS, TRAIN_D = 2, 2048, 16, 2048
 TRAIN_STEPS, TRAIN_WARMUP = 20, 2
@@ -313,6 +320,11 @@ GRAFT_ROWS, GRAFT_D = 512, 512
 #    layer; 5e-2 of max|logit| (the CPU's bf16 forward of the port is
 #    1.0e-2 from its f32 one), and the argmax of at least 90% of rows
 #    must agree (the f32 top-2 margin is ~0.14, seven times the gap).
+#  * paged decode O (bf16) against the plain version on the card: both
+#    widen the same bf16 operands exactly and compute scores, softmax and
+#    PV in f32 (sum order and exp2f against exp aside, ~1e-7 of the
+#    outputs' scale), then round once to bf16: at most one bf16 ulp
+#    apart, 2^-7 of the value; 1e-5 absolute for outputs near 0.
 TOL = {
     "rms_bf16": dict(rtol=2 ** -7, atol=1e-6),
     "rms_f32": dict(rtol=1e-5, atol=1e-5),
@@ -327,6 +339,7 @@ TOL = {
     "trainer_loss_rel": 2e-2,
     "graft_logits_rel_to_max": 5e-2,
     "graft_argmax_share": 0.9,
+    "paged_o": dict(rtol=2 ** -7, atol=1e-5),
 }
 
 
@@ -683,6 +696,59 @@ def check_model_grads(dev) -> dict:
             "worst_grad_rel_err": worst}
 
 
+def paged_refusals(dev) -> list:
+    """(what, arguments) the paged decode kernel does not take: f32 q, a
+    head_dim of 96, a strided q, page size 32, 16 q heads on one kv head,
+    caches of another page size than asked for."""
+    base = paged_inputs(4, 8, 2, 64, 8, 8, (1, 60), dev, 21, holes=False)
+    odd = paged_inputs(4, 8, 2, 96, 8, 8, (1, 60), dev, 22, holes=False)
+    wide = paged_inputs(4, 16, 1, 64, 8, 8, (1, 60), dev, 23, holes=False)
+    big = paged_inputs(4, 8, 2, 64, 32, 8, (1, 60), dev, 24, holes=False)
+    strided = torch.empty(4, 8, 128, device=dev,
+                          dtype=torch.bfloat16)[..., ::2]
+    return [("f32 q", dict(base, q=base["q"].float())),
+            ("head_dim=96", odd),
+            ("strided q", dict(base, q=strided)),
+            ("page size 32", big),
+            ("group 16", wide),
+            ("page size 16 on a cache of 8", dict(base, page_size=16))]
+
+
+def paged_resources() -> dict:
+    """The paged decode attention kernel's ptxas resources at (group 4,
+    head_dim 128, page 16), the chat cell's instance, with its dynamic
+    shared memory and resident blocks an SM; `SPILL:` is logged for any
+    instance that spills."""
+    from ray_tpu_torch.ops.paged_decode import _kernel as paged_kernel
+    lib = paged_kernel()[0]
+    text = _build.library_path("paged_decode").with_suffix(".log").read_text()
+    res = ptxas_resources(text)
+    main_entry = None
+    for entry, r in res.items():
+        if r.get("spill_store_bytes", 0) or r.get("spill_load_bytes", 0):
+            log(f"SPILL: paged_decode {entry}: {r}")
+        if "rtt_paged_decode_attn" in entry and "ILi4ELi128ELi16E" in entry:
+            main_entry = entry
+    if main_entry is None:
+        raise RuntimeError("ptxas reported no paged decode kernel at "
+                           "(4, 128, 16)")
+    ptr = ctypes.POINTER(ctypes.c_int)
+    lib.rtt_paged_decode_occupancy.argtypes = [ptr, ptr]
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.rtt_paged_decode_occupancy(
+        ctypes.byref(smem), ctypes.byref(blocks)), "occupancy")
+    r = res[main_entry]
+    out = {"registers": r["registers"],
+           "smem_bytes": r["smem_static_bytes"] + smem.value,
+           "spill_bytes": r["spill_store_bytes"] + r["spill_load_bytes"],
+           "blocks_per_sm": blocks.value,
+           "ptxas": {e: v for e, v in res.items() if "paged_decode" in e}}
+    log(f"  paged_decode (4, 128, 16): registers {out['registers']}, smem "
+        f"{out['smem_bytes']}, blocks/SM {out['blocks_per_sm']}, spills "
+        f"{out['spill_bytes']}")
+    return out
+
+
 def check_refusals(dev) -> None:
     """A CUDA tensor of a shape a kernel does not take raises; it never
     runs the plain version instead."""
@@ -713,6 +779,8 @@ def check_refusals(dev) -> None:
             torch.ones(1, 2, 64, 128, device=dev, dtype=bf)[..., ::2],
             True, 0.125)),
     ]
+    cases += [(f"paged decode {what}", functools.partial(
+        paged_decode_attention, **args)) for what, args in paged_refusals(dev)]
     for what, fn in cases:
         try:
             fn()
@@ -921,16 +989,169 @@ def time_flash_bwd(dev, peaks) -> dict:
     return out
 
 
+# (rows, q heads, kv heads, head_dim, page size, table pages, contexts) of
+# the paged decode checks: the chat cell's shape (Mistral-7B's heads, 256
+# rows, contexts 16-4,096 over 256-page tables), llama3-8b's 8-row decode
+# steps in serve() (512-page tables: the chunked path), a tp=2 rank's
+# heads, head_dim 64 at page 8 (the card tests' engine), and the GQA
+# groups 1, 2, 3 and 8; contexts are drawn from the range given, with a
+# row at position 0 (only the new token is seen) in every case
+PAGED_CASES = [
+    (256, HEADS, KV_HEADS, HEAD_DIM, 16, 256, (16, 4096)),
+    (DECODE_ROWS, HEADS, KV_HEADS, HEAD_DIM, 16, 512, (1, 3000)),
+    (DECODE_ROWS, HEADS // 2, KV_HEADS // 2, HEAD_DIM, 16, 512, (1, 3000)),
+    (8, 4, 2, 64, 8, 64, (1, 512)),
+    (6, 8, 8, 128, 8, 40, (1, 320)),
+    (6, 8, 4, 64, 16, 40, (1, 640)),
+    (5, 12, 4, 128, 16, 20, (1, 320)),
+    (5, 16, 2, 64, 8, 48, (1, 384)),
+]
+
+
+def paged_inputs(rows, heads, kvh, hd, ps, max_pages, contexts, dev,
+                 seed: int, holes: bool = True) -> dict:
+    """Arguments of `paged_decode_attention` for one layer: a pool of
+    random bf16 pages, each active row's pages drawn without replacement
+    (a shuffled pool) for a context drawn from `contexts` (its position
+    the context's last), the rest of its table -1. With `holes`: the
+    last row is inactive, one row has an unassigned page in the middle of
+    its context, one its own page unassigned (it writes nothing), and one
+    sits at position 0. Tables from a CPU generator, values from one on
+    `dev`, both seeded with `seed`."""
+    tables = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = contexts
+    ctx = torch.randint(lo, hi + 1, (rows,), generator=tables)
+    ctx = ctx.clamp(max=max_pages * ps)
+    need = (ctx + ps - 1) // ps
+    num_pages = int(need.sum()) + 4
+    perm = torch.randperm(num_pages, generator=tables)
+    pt = torch.full((rows, max_pages), -1, dtype=torch.int32)
+    at = 0
+    for r in range(rows):
+        pt[r, :need[r]] = perm[at:at + need[r]].to(torch.int32)
+        at += int(need[r])
+    active = torch.ones(rows, dtype=torch.bool)
+    if holes and rows >= 4:
+        active[-1] = False
+        if need[0] >= 3:
+            pt[0, need[0] // 2] = -1                     # a hole
+        if need[1] >= 2:
+            pt[1, need[1] - 1] = -1                      # own page unassigned
+        ctx[2], pt[2, 1:] = 1, -1                        # position 0
+    shape = (num_pages, ps, kvh, hd)
+    bf = torch.bfloat16
+    return {"q": torch.randn(rows, heads, hd, generator=gen, device=dev
+                             ).to(bf),
+            "k_cache": torch.randn(shape, generator=gen, device=dev).to(bf),
+            "v_cache": torch.randn(shape, generator=gen, device=dev).to(bf),
+            "k": torch.randn(rows, kvh, hd, generator=gen, device=dev).to(bf),
+            "v": torch.randn(rows, kvh, hd, generator=gen, device=dev).to(bf),
+            "page_tables": pt.to(dev), "positions": (ctx - 1).to(torch.int32
+                                                              ).to(dev),
+            "active": active.to(dev), "page_size": ps,
+            "scale": hd ** -0.5}
+
+
+def run_paged(fn, args: dict) -> tuple:
+    """(output, k cache, v cache) of `fn` on a copy of the caches."""
+    a = dict(args, k_cache=args["k_cache"].clone(),
+             v_cache=args["v_cache"].clone())
+    out = fn(**a)
+    return out, a["k_cache"], a["v_cache"]
+
+
+def check_paged_decode(dev) -> float:
+    """The kernel against the plain version over PAGED_CASES: active rows'
+    outputs within TOL["paged_o"], a row at position 0 equal to its new
+    v, both caches bit-equal after the write (inactive rows and rows
+    whose page is unassigned write nothing), and two launches giving the
+    same bits."""
+    worst = 0.0
+    for i, case in enumerate(PAGED_CASES):
+        rows, heads, kvh, hd, ps, max_pages, contexts = case
+        args = paged_inputs(rows, heads, kvh, hd, ps, max_pages, contexts,
+                            dev, 11 + i)
+        before = paged_decode_attention.launches
+        got, gk, gv = run_paged(paged_decode_attention, args)
+        again, _, _ = run_paged(paged_decode_attention, args)
+        if paged_decode_attention.launches != before + 2:
+            raise AssertionError(f"paged decode {case} did not launch")
+        want, wk, wv = run_paged(paged_decode_attention_reference, args)
+        torch.cuda.synchronize()
+        act = args["active"]
+        err = compare(got[act], want[act], TOL["paged_o"],
+                      f"paged decode {case}")
+        if not (torch.equal(gk, wk) and torch.equal(gv, wv)):
+            raise AssertionError(f"paged decode {case}: the caches differ "
+                                 f"from the plain version's after the write")
+        if not torch.equal(got, again):
+            raise AssertionError(f"paged decode {case}: two launches differ")
+        zero = (args["positions"] == 0) & act
+        if zero.any():
+            g = heads // kvh
+            v0 = args["v"].repeat_interleave(g, dim=1)
+            if not torch.equal(got[zero], v0[zero]):
+                raise AssertionError(f"paged decode {case}: a row at "
+                                     f"position 0 is not its new v")
+        log(f"check paged_decode rows={rows} h={heads}/{kvh} d={hd} "
+            f"page={ps} pages={max_pages} contexts={contexts}: max_abs_err "
+            f"{err:.3e}")
+        worst = max(worst, err)
+        del args, got, gk, gv, again, want, wk, wv
+    return worst
+
+
+def time_paged_decode(dev, peaks, rows: int, heads: int, kvh: int,
+                      context: int, max_pages: int, hd: int = HEAD_DIM,
+                      ps: int = 16) -> dict:
+    """The kernel and its plain version with every one of `rows` rows at
+    `context` positions (the new token's included) in tables of
+    `max_pages` pages. No single PyTorch call computes paged attention,
+    so there is no library yardstick. Bound: each row's K and V read,
+    its new k / v written, q read and O written (bf16), against the f32
+    FLOPs of QK and PV at 67 TF/s."""
+    args = paged_inputs(rows, heads, kvh, hd, ps, max_pages,
+                        (context, context), dev, 13, holes=False)
+    out = dict(zip(("ms", "call_ms"), time_ms(
+        lambda: paged_decode_attention(**args), 50)))
+    # the plain version syncs the host on its write rows (torch.nonzero),
+    # so it cannot be queued behind a sleep: each call between its own
+    # events (the card idles while the host waits, as on its main path)
+    plain = functools.partial(paged_decode_attention_reference, **args)
+    out["plain_ms"] = time_launches(plain, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        plain()
+    torch.cuda.synchronize()
+    out["plain_call_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    out["library_ms"] = None
+    nbytes = 2 * (2 * rows * context * kvh * hd) + 2 * (
+        2 * rows * kvh * hd) + 2 * (2 * rows * heads * hd)
+    ops = 4 * rows * heads * hd * context
+    out["bound_ms"], out["bound_by"] = bound(nbytes, ops, peaks[2], peaks)
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["gb_s"] = nbytes / out["ms"] / 1e6
+    out["shape"] = (f"{rows} rows x {context} positions, q {heads} / kv "
+                    f"{kvh} heads, head_dim {hd}, page {ps}, tables of "
+                    f"{max_pages} pages, bf16")
+    del args
+    return out
+
+
 def kernel_counts() -> dict:
     return {"flash_fwd": flash_attention.launches,
             "flash_dkdv": flash_attention.dkdv_launches,
             "flash_dq": flash_attention.dq_launches,
-            "rms_norm": rms_norm.launches}
+            "rms_norm": rms_norm.launches,
+            "paged_decode": paged_decode_attention.launches}
 
 
 def reset_counts() -> None:
     rms_norm.launches = flash_attention.launches = 0
     flash_attention.dkdv_launches = flash_attention.dq_launches = 0
+    paged_decode_attention.launches = 0
 
 
 class TimedCore(EngineCore):
@@ -1025,7 +1246,8 @@ def check_schedule(cfg, core, prompts, new_tokens, tokens, done,
     n_prefill, n_decode = len(core.prefill_ms), len(core.decode_ms)
     want = {"flash_fwd": cfg.n_layers * n_prefill,
             "flash_dkdv": 0, "flash_dq": 0,
-            "rms_norm": (2 * cfg.n_layers + 1) * (n_prefill + n_decode)}
+            "rms_norm": (2 * cfg.n_layers + 1) * (n_prefill + n_decode),
+            "paged_decode": cfg.n_layers * n_decode}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
 
@@ -1233,7 +1455,9 @@ def serve_engine(dev, cfg, params, prompts, new_tokens, want, reasons,
                 or launches["flash_fwd"] != cfg.n_layers * admitted
                 or launches["flash_dkdv"] or launches["flash_dq"]
                 or launches["rms_norm"] % per_pass
-                or launches["rms_norm"] // per_pass <= admitted):
+                or launches["rms_norm"] // per_pass <= admitted
+                or launches["paged_decode"] != cfg.n_layers * (
+                    launches["rms_norm"] // per_pass - admitted)):
             raise AssertionError(f"llm_engine launches {launches} for "
                                  f"{admitted} admissions")
         generated = sum(len(t) for t in got.values())
@@ -1371,10 +1595,11 @@ def remat_steps(cfg, params, batch, repeats: int = 5) -> dict:
               for p in ("full", "save_attn")}
     runs, measured, want = {}, {}, {
         "full": {"flash_fwd": 2 * cfg.n_layers, "flash_dkdv": cfg.n_layers,
-                 "flash_dq": cfg.n_layers, "rms_norm": 4 * cfg.n_layers + 1},
+                 "flash_dq": cfg.n_layers, "rms_norm": 4 * cfg.n_layers + 1,
+                 "paged_decode": 0},
         "save_attn": {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
                       "flash_dq": cfg.n_layers,
-                      "rms_norm": 4 * cfg.n_layers + 1}}
+                      "rms_norm": 4 * cfg.n_layers + 1, "paged_decode": 0}}
     for policy, model in models.items():
         torch.cuda.synchronize()
         reset_counts()
@@ -1593,7 +1818,8 @@ def train(dev, peaks) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = kernel_counts()
     per_step = {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
-                "flash_dq": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1}
+                "flash_dq": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1,
+                "paged_decode": 0}
     if launches != {k: n * TRAIN_STEPS for k, n in per_step.items()}:
         raise AssertionError(f"train launches {launches} over "
                              f"{TRAIN_STEPS} steps, expected {per_step} "
@@ -1866,7 +2092,8 @@ def trainer_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
                                  f" against train()'s "
                                  f"{trained['losses'][:TRAINER_STEPS]}")
         per_step = {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
-                    "flash_dq": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1}
+                    "flash_dq": cfg.n_layers,
+                    "rms_norm": 2 * cfg.n_layers + 1, "paged_decode": 0}
         for m in hist:
             if m["launches"] != per_step:
                 raise AssertionError(f"trainer step {m['step']} launched "
@@ -2278,7 +2505,8 @@ def elastic_phase(trained: dict, dev, cfg=None, batch: int = TRAIN_B,
                     f"step {r['step']} on {r['node']}: loss {r['loss']!r}, "
                     f"train()'s {trained['losses'][r['step']]!r}")
         per_step = {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
-                    "flash_dq": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1}
+                    "flash_dq": cfg.n_layers,
+                    "rms_norm": 2 * cfg.n_layers + 1, "paged_decode": 0}
         for r in log_rows:
             if r["launches"] != per_step:
                 raise AssertionError(f"step {r['step']} on {r['node']} "
@@ -2482,7 +2710,8 @@ def timed_steps(model, params, opt, batch, steps: int, dev) -> dict:
 
 def check_launches(runs: list, cfg, what: str) -> dict:
     per_step = {"flash_fwd": cfg.n_layers, "flash_dkdv": cfg.n_layers,
-                "flash_dq": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1}
+                "flash_dq": cfg.n_layers, "rms_norm": 2 * cfg.n_layers + 1,
+                "paged_decode": 0}
     for i, got in enumerate(runs):
         if got != per_step:
             raise AssertionError(f"{what} step {i} launched {got}, expected "
@@ -2866,7 +3095,7 @@ def runtime(served: dict) -> dict:
         if got["tokens"] != served["tokens"]:
             raise AssertionError(f"actor tokens {got['tokens']} differ from "
                                  f"EngineCore's {served['tokens']}")
-        for name in ("flash_fwd", "rms_norm"):
+        for name in ("flash_fwd", "rms_norm", "paged_decode"):
             if got["launches"][name] <= 0:
                 raise AssertionError(f"{name} never launched in the actor")
         second = server.remote()
@@ -2987,12 +3216,19 @@ def drive_replica(handle, cfg, served: dict, what: str,
         if launches["rms_norm"] <= 0:
             raise AssertionError(f"rms_norm never launched in rank {rank} "
                                  f"of the {what} replica")
+        if (launches["paged_decode"] <= 0
+                or launches["paged_decode"] % cfg.n_layers):
+            raise AssertionError(
+                f"paged_decode launched {launches['paged_decode']} times in "
+                f"rank {rank} of the {what} replica, expected a layer a "
+                f"decode step")
     ttft = [stamps[rid][0] - submitted[rid] for rid in prompts]
     tpot = [b - a for rid in prompts
             for a, b in zip(stamps[rid], stamps[rid][1:])]
     out = {"launches": {"flash_fwd": by_rank[0]["flash_fwd"],
                         "flash_dkdv": 0, "flash_dq": 0,
-                        "rms_norm": by_rank[0]["rms_norm"]},
+                        "rms_norm": by_rank[0]["rms_norm"],
+                        "paged_decode": by_rank[0]["paged_decode"]},
            "ttft_ms_p50": statistics.median(ttft) * 1e3,
            "tpot_ms_p50": statistics.median(tpot) * 1e3,
            "generated_tokens": sum(map(len, tokens.values())),
@@ -3392,7 +3628,8 @@ def tp_model_check(served: dict, dev, cfg) -> dict:
     steps = 1 + len(want["r3"])
     for rank, c in enumerate(counts):
         if (c["flash_fwd"] != cfg.n_layers
-                or c["rms_norm"] != (2 * cfg.n_layers + 1) * steps):
+                or c["rms_norm"] != (2 * cfg.n_layers + 1) * steps
+                or c["paged_decode"] != cfg.n_layers * (steps - 1)):
             raise AssertionError(f"rank {rank} launched {c} in one prefill "
                                  f"and {steps - 1} decode steps")
     gap = (rows - ref_rows).abs().max().item()
@@ -3657,7 +3894,8 @@ def tune_phase(dev, smi: str, cfg=None, batch: int = TRAIN_B,
             raise AssertionError(f"trial lr {t['lr']}: first loss "
                                  f"{t['first_loss']!r}, in process "
                                  f"{first!r}")
-        if on_card and min(t["launches"].values()) <= 0:
+        if on_card and min(n for k, n in t["launches"].items()
+                           if k != "paged_decode") <= 0:
             raise AssertionError(f"trial lr {t['lr']} launched "
                                  f"{t['launches']}")
     out["best_lr"] = best.config["lr"]
@@ -3930,7 +4168,8 @@ def pipe_launches(cfg, stage: int) -> dict:
     fwd = (1 if last else 2) * per_stage * PIPE_MB
     return {"flash_fwd": fwd, "flash_dkdv": per_stage * PIPE_MB,
             "flash_dq": per_stage * PIPE_MB,
-            "rms_norm": 2 * fwd + (PIPE_MB if last else 0)}
+            "rms_norm": 2 * fwd + (PIPE_MB if last else 0),
+            "paged_decode": 0}
 
 
 def pipeline_phase(trained: dict, dev, smi: str, cfg=None,
@@ -5518,7 +5757,8 @@ def periphery_phase(dev, smi: str, peaks) -> dict:
     launches = kernel_counts()
     if not torch.equal(logits, fn(params, tokens)):
         raise AssertionError("two graft entry forwards differ")
-    want = {"flash_fwd": 8, "flash_dkdv": 0, "flash_dq": 0, "rms_norm": 17}
+    want = {"flash_fwd": 8, "flash_dkdv": 0, "flash_dq": 0, "rms_norm": 17,
+            "paged_decode": 0}
     if launches != want:
         raise AssertionError(f"graft entry launches {launches}, want {want}")
     cpu = {k: ([{n: t.cpu() for n, t in layer.items()} for layer in v]
@@ -5716,6 +5956,7 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     build_s, res = build()
+    res_paged = paged_resources()
     log(f"build: {build_s:.1f} s")
 
     rms_err = check_rms(dev)
@@ -5725,6 +5966,7 @@ def main() -> None:
     check_bwd_determinism(dev)
     autograd_err = check_autograd(dev)
     model_check = check_model_grads(dev)
+    paged_err = check_paged_decode(dev)
     check_refusals(dev)
 
     rms_pre = time_rms(dev, peaks, S_MAIN)
@@ -5737,6 +5979,11 @@ def main() -> None:
     flash_train = time_flash(dev, peaks, TRAIN_B, TRAIN_HEADS, TRAIN_HEADS,
                              TRAIN_S)
     bwd = time_flash_bwd(dev, peaks)
+    # the chat cell's decode step at its mean context, and serve()'s
+    paged_chat = time_paged_decode(dev, peaks, 256, HEADS, KV_HEADS,
+                                   PAGED_CHAT_CONTEXT, 256)
+    paged_8 = time_paged_decode(dev, peaks, DECODE_ROWS, HEADS, KV_HEADS,
+                                PAGED_ROWS8_CONTEXT, 512)
     for what, t in (("rms_norm prefill", rms_pre),
                     ("rms_norm decode", rms_dec),
                     ("rms_norm train", rms_train),
@@ -5746,7 +5993,9 @@ def main() -> None:
                     ("flash_fwd train", flash_train),
                     ("flash_dkdv train", bwd["dkdv"]),
                     ("flash_dq train", bwd["dq"]),
-                    ("flash_bwd pair train", bwd["pair"])):
+                    ("flash_bwd pair train", bwd["pair"]),
+                    ("paged_decode chat", paged_chat),
+                    ("paged_decode 8 rows", paged_8)):
         log(f"time {what}: " + json.dumps(t))
     gc.collect()
     torch.cuda.empty_cache()
@@ -5839,12 +6088,13 @@ def main() -> None:
     paths["graft_entry_forward"] = periphery["b"]["launches"]
     paths["client_task_forward"] = periphery["c"]["launches"]
     paths["topology_worker_forward"] = periphery["d"]["launches"]
-    for name in ("flash_fwd", "flash_dkdv", "flash_dq", "rms_norm"):
-        if sum(p[name] for p in paths.values()) == 0:
+    for name in ("flash_fwd", "flash_dkdv", "flash_dq", "rms_norm",
+                 "paged_decode"):
+        if sum(p.get(name, 0) for p in paths.values()) == 0:
             raise AssertionError(f"{name} never launched on a main path")
 
     def by_path(name):
-        return {path: counts[name] for path, counts in paths.items()}
+        return {path: counts.get(name, 0) for path, counts in paths.items()}
 
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
@@ -5881,6 +6131,14 @@ def main() -> None:
          "tolerance": {"bf16": TOL["rms_bf16"], "f32": TOL["rms_f32"]},
          **rms_pre, "kernel_ms": rms_pre["ms"], "decode": rms_dec,
          "train": rms_train, "graft_entry": periphery["time"]["rms_norm"]},
+        {"name": "paged_decode", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/paged_decode.cu",
+         "replaces": None,
+         "launches": served["launches"]["paged_decode"],
+         "launches_by_path": by_path("paged_decode"),
+         "max_abs_err": paged_err, "tolerance": TOL["paged_o"],
+         **paged_chat, "kernel_ms": paged_chat["ms"], "rows8": paged_8,
+         **res_paged},
     ]
     log("check model: " + json.dumps(model_check))
     print(smi)                  # name, power limit as nvidia-smi gives them

@@ -25,8 +25,12 @@ Differences from the JAX functions:
     arrays are immutable and its functions return a new cache;
   * JAX routes writes of padded prompt positions and inactive decode
     rows to the `num_pages` drop sentinel of a `mode="drop"` scatter.
-    PyTorch has no such scatter, so only the valid rows are written,
-    with `index_put_`.
+    PyTorch has no such scatter, so only the valid rows are written:
+    with `index_put_` in `prefill` and on the CPU, by the paged decode
+    kernel on the card (`ops/paged_decode.py`);
+  * a decode step's attention is `paged_decode_attention`: on the card
+    a kernel that reads each active row's own pages in place, on the
+    CPU the gather over every row's whole page table that JAX runs.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from ray_tpu_torch.models.transformer import Params, Transformer
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.dispatch import resolve_device
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.paged_decode import paged_decode_attention
 from ray_tpu_torch.ops.rope import apply_rope_cached, rope_cos_sin
 
 KVCache = Dict[str, torch.Tensor]
@@ -200,54 +205,23 @@ def decode_step(model: Transformer, params: Params, cache: KVCache,
     Returns (logits (B, vocab) f32, the cache, updated in place).
     """
     c = model.config
-    ad = c.activation_dtype
     hd = c.head_dim
     ck, cv = cache["k"], cache["v"]
-    num_pages = ck.shape[1]
     B = tokens.shape[0]
-    max_pages = page_tables.shape[1]
-    span = max_pages * page_size
-    dev = tokens.device
-    positions = positions.long()
-    page_tables = page_tables.long()
 
     x = model._embed_lookup(params["embed"], tokens[:, None])  # (B, 1, e)
     cos, sin = rope_cos_sin(positions[:, None], hd, c.rope_theta)
-
-    my_page = torch.gather(page_tables, 1,
-                           (positions // page_size)[:, None])[:, 0]
-    # rows that write their K/V this step: one host sync per step
-    rows = torch.nonzero(active & (my_page >= 0)).squeeze(1)
-    wr_page = my_page[rows]
-    wr_slot = (positions % page_size)[rows]
-    # context mask: cache slot j is visible iff j <= position and its
-    # page is assigned (own-position k/v is written before the read)
-    flat = torch.arange(span, device=dev)
-    assigned = (page_tables >= 0).repeat_interleave(page_size, dim=1)
-    mask = (flat[None, :] <= positions[:, None]) & assigned
-    gather_pt = page_tables.clamp(0, num_pages - 1)
-    heads, kv_heads = _heads(c, params["layers"][0])
-    groups = heads // kv_heads
     scale = 1.0 / (hd ** 0.5)
-    f32min = torch.finfo(torch.float32).min
 
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], c.norm_eps)
         q, k, v = _qkv(c, layer, h)                  # (B, 1, heads, hd)
         q = apply_rope_cached(q, cos, sin)
         k = apply_rope_cached(k, cos, sin)
-        ck[i].index_put_((wr_page, wr_slot), k[rows, 0].to(ck.dtype))
-        cv[i].index_put_((wr_page, wr_slot), v[rows, 0].to(cv.dtype))
-        keys = ck[i][gather_pt].reshape(B, span, kv_heads, hd)
-        vals = cv[i][gather_pt].reshape(B, span, kv_heads, hd)
-        qg = q[:, 0].reshape(B, kv_heads, groups, hd)
-        scores = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
-                              keys.to(torch.float32)) * scale
-        scores = scores.masked_fill(~mask[:, None, None, :], f32min)
-        probs = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bkgs,bskd->bkgd", probs,
-                           vals.to(torch.float32)).to(ad)
-        out = out.reshape(B, 1, heads * hd)
+        out = paged_decode_attention(q[:, 0], ck[i], cv[i], k[:, 0],
+                                     v[:, 0], page_tables, positions,
+                                     active, page_size, scale)
+        out = out.reshape(B, 1, q.shape[2] * hd)
         x = x + _row_parallel(out, _w(c, layer, "wo"), group)
         x = _mlp(c, layer, x, group)
 

@@ -37,9 +37,10 @@ import os
 import threading
 import time
 import uuid
+import weakref
 from collections import deque
 from collections.abc import Mapping
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,6 +55,7 @@ from ray_tpu_torch.models.transformer import Transformer
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.dispatch import resolve_device
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.paged_decode import paged_decode_attention
 from ray_tpu_torch.serve.llm import replica_group as _rg
 from ray_tpu_torch.serve.llm.kv_cache import (PageAllocator,
                                               pages_from_budget, pages_needed)
@@ -372,6 +374,22 @@ class EngineCore:
                 **self.counters}
 
 
+def _weak_backlog(engine: "LLMEngine") -> Callable[[str, int],
+                                                   Optional[dict]]:
+    """`engine._backlog` through a weak reference, for its stream server.
+    A subscriber's connection thread can still be writing a replay when
+    `close` returns (a slow or departed consumer): it holds the server,
+    and through a bound method the server would hold the engine, its
+    weights and KV cache, until that write ends. After the engine is
+    gone a replay finds no request (None: "unknown_rid")."""
+    ref = weakref.ref(engine)
+
+    def backlog(rid: str, cursor: int) -> Optional[dict]:
+        eng = ref()
+        return None if eng is None else eng._backlog(rid, cursor)
+    return backlog
+
+
 def _to_device(tree, device: torch.device):
     """Every tensor of a params tree (dicts and lists) on `device`, each
     in its own dtype; the tree fetched from the object store is left
@@ -469,7 +487,7 @@ class LLMEngine:
         self._stream = None
         if CONFIG.llm_stream:
             self._stream = TokenStreamServer(self.incarnation,
-                                             self._backlog)
+                                             _weak_backlog(self))
         self._stop = threading.Event()
         self._kick = threading.Event()
         self._thread = threading.Thread(target=self._loop,
@@ -715,8 +733,10 @@ class LLMEngine:
         # EngineCore.stats() stays key for key the same): this process's
         # kernel launches, the seconds the weights took to fetch and
         # place (or init), and the device's peak allocation
-        st["kernel_launches"] = {"flash_fwd": flash_attention.launches,
-                                 "rms_norm": rms_norm.launches}
+        st["kernel_launches"] = {
+            "flash_fwd": flash_attention.launches,
+            "rms_norm": rms_norm.launches,
+            "paged_decode": paged_decode_attention.launches}
         st["weights_s"] = self.weights_s
         st["cache_bytes"] = _rg.cache_bytes(self.core._cache)
         if self._ranks is not None:

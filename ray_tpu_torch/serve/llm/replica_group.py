@@ -289,8 +289,10 @@ class TPRank:
     def launches(self) -> dict:
         from ray_tpu_torch.ops.attention import flash_attention
         from ray_tpu_torch.ops.norms import rms_norm
+        from ray_tpu_torch.ops.paged_decode import paged_decode_attention
         return {"flash_fwd": flash_attention.launches,
-                "rms_norm": rms_norm.launches}
+                "rms_norm": rms_norm.launches,
+                "paged_decode": paged_decode_attention.launches}
 
 
 def cache_bytes(cache) -> int:

@@ -30,6 +30,8 @@ from ray_tpu_torch.ops.attention import (_flash_bwd_cuda, flash_attention,
                                          flash_attention_reference,
                                          mha_reference)
 from ray_tpu_torch.ops.norms import rms_norm, rms_norm_reference
+from ray_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                            paged_decode_attention_reference)
 from ray_tpu_torch.serve.llm.engine import EngineCore
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -247,6 +249,64 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take(dev):
     assert (rms_norm.launches, flash_attention.launches,
             flash_attention.dkdv_launches, flash_attention.dq_launches) \
         == before
+
+
+# chip_smoke.PAGED_CASES by name: the chat cell's shape (256 rows,
+# contexts 16-4,096, 32 / 8 heads, head_dim 128, page 16), llama3-8b's
+# 8-row decode steps (512-page tables: several chunks a row), head_dim 64
+# at page 8 (the engine tests' model)
+PAGED_SHAPES = {"chat": chip_smoke.PAGED_CASES[0],
+                "rows8": chip_smoke.PAGED_CASES[1],
+                "hd64": chip_smoke.PAGED_CASES[3]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(PAGED_SHAPES))
+def test_paged_decode_kernel_matches_plain(dev, shape):
+    """Active rows' outputs within a bf16 ulp of the plain version's, and
+    both caches bit-equal after the write: each writing row's new k / v
+    in its slot, nothing from the inactive row or the row whose own page
+    is unassigned."""
+    rows, heads, kvh, hd, ps, max_pages, contexts = PAGED_SHAPES[shape]
+    args = chip_smoke.paged_inputs(rows, heads, kvh, hd, ps, max_pages,
+                                   contexts, dev, 31)
+    before = paged_decode_attention.launches
+    got, gk, gv = chip_smoke.run_paged(paged_decode_attention, args)
+    assert paged_decode_attention.launches == before + 1
+    want, wk, wv = chip_smoke.run_paged(paged_decode_attention_reference,
+                                        args)
+    act = args["active"]
+    torch.testing.assert_close(got[act].float(), want[act].float(),
+                               **chip_smoke.TOL["paged_o"])
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    pt, pos = args["page_tables"].long(), args["positions"].long()
+    own = pt[torch.arange(rows, device=dev), pos // ps]
+    writers = act & (own >= 0)
+    assert not writers[-1] and not writers[1]
+    changed = (gk != args["k_cache"]).any(-1).any(-1)
+    assert int(changed.sum()) == int(writers.sum())
+    assert changed[own[writers], (pos % ps)[writers]].all()
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_is_deterministic(dev):
+    """No atomics and a fixed order of sums: two launches at the chat
+    cell's shape give the same bits."""
+    rows, heads, kvh, hd, ps, max_pages, contexts = PAGED_SHAPES["chat"]
+    args = chip_smoke.paged_inputs(rows, heads, kvh, hd, ps, max_pages,
+                                   contexts, dev, 32)
+    a = chip_smoke.run_paged(paged_decode_attention, args)
+    b = chip_smoke.run_paged(paged_decode_attention, args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_paged_decode_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    before = paged_decode_attention.launches
+    for what, args in chip_smoke.paged_refusals(dev):
+        with pytest.raises((TypeError, ValueError)):
+            paged_decode_attention(**args)
+    assert paged_decode_attention.launches == before
 
 
 @pytest.mark.cuda
@@ -512,6 +572,7 @@ def test_engine_on_the_card_matches_the_cpu_plain_path(dev):
     core = EngineCore(cfg, params, num_pages=32, page_size=8, max_batch=4)
     assert core.device == dev
     rms_norm.launches = flash_attention.launches = 0
+    paged_decode_attention.launches = 0
     core.submit(list(range(1, 40)), max_tokens=6, rid="a")
     core.submit([5, 6, 7], max_tokens=4, rid="b")
     steps = 0
@@ -520,6 +581,8 @@ def test_engine_on_the_card_matches_the_cpu_plain_path(dev):
         steps += 1
     assert flash_attention.launches == cfg.n_layers * 2
     assert rms_norm.launches == (2 * cfg.n_layers + 1) * (2 + steps)
+    # every step decodes once, through the kernel on every layer
+    assert paged_decode_attention.launches == cfg.n_layers * steps
     assert core.stats()["free_pages"] == 32
     cpu = {k: ([{n: t.cpu() for n, t in layer.items()} for layer in v]
                if k == "layers" else v.cpu()) for k, v in params.items()}
@@ -704,6 +767,28 @@ def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
     assert _build.library_path("flash_fwd") != a
 
 
+def test_a_first_load_builds_every_missing_library_at_once(monkeypatch):
+    """Loading one kernel builds all the missing ones, in parallel, so a
+    checkout's first run pays the longest build, not their sum; the
+    paged decode source alone compiles in split mode, under its own
+    library name."""
+    import types
+    asked = []
+
+    def build(names=None):
+        asked.append(names)
+        return {n: _build.library_path(n) for n in _build.SOURCES}
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(_build.ctypes, "CDLL",
+                        lambda path: types.SimpleNamespace(
+                            path=path,
+                            rtt_error_string=types.SimpleNamespace()))
+    lib = _build.load("rms_norm")
+    assert asked == [None] and lib.path == str(_build.library_path("rms_norm"))
+    assert "-split-compile" in _build.flags("paged_decode")
+    assert _build.flags("flash_fwd") == _build.NVCC_FLAGS
+
+
 def test_a_header_edit_renames_every_library(monkeypatch, tmp_path):
     """The kernels include csrc/*.cuh: editing a header must rebuild them
     all, never load a library built from the old header."""
@@ -776,7 +861,8 @@ def test_chip_smoke_forward_cases_cover_every_tile_edge():
 def test_every_kernel_source_is_listed():
     on_disk = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert on_disk == sorted(_build.SOURCES)
-    assert {"flash_fwd", "flash_bwd", "rms_norm"} <= set(_build.SOURCES)
+    assert {"flash_fwd", "flash_bwd", "rms_norm",
+            "paged_decode"} <= set(_build.SOURCES)
 
 
 def test_bench_needs_the_card_unless_asked_for_the_cpu():

@@ -345,6 +345,26 @@ def test_close_ends_every_thread_and_frees_the_engine():
     _wait_for(lambda: gc.collect() >= 0 and ref() is None)
 
 
+def test_a_connection_still_writing_after_close_does_not_hold_the_engine():
+    """A subscriber's connection thread can still be writing its replay
+    when `close` returns; it holds the stream server (here: `server`),
+    and the server must not hold the engine: the weights and KV cache
+    are free as `close` returns, and a replay asked for after it finds
+    no request."""
+    import gc
+    import weakref
+    eng = LLMEngine(model="tiny", seed=0, device="cpu", **ENGINE)
+    eng.generate([1, 2], max_tokens=3, rid="w")
+    server = eng._stream
+    ref = weakref.ref(eng)
+    cache = weakref.ref(eng.core._cache["k"])
+    eng.close()
+    del eng
+    gc.collect()
+    assert ref() is None and cache() is None
+    assert server._backlog("w", 0) is None
+
+
 # ------------------------------------------------------------- spans
 @pytest.fixture
 def traced(monkeypatch):

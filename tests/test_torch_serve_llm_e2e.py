@@ -106,7 +106,8 @@ def test_serve_llm_from_a_weights_ref_matches_jax_engine(serve_shutdown,
     (st,) = handle.stats()
     assert st["finished"] == len(PROMPTS) and st["free_pages"] == 64
     # the CPU path launches no kernel; the counts are this replica's own
-    assert st["kernel_launches"] == {"flash_fwd": 0, "rms_norm": 0}
+    assert st["kernel_launches"] == {"flash_fwd": 0, "rms_norm": 0,
+                                     "paged_decode": 0}
 
 
 def test_llm_e2e_two_replicas_short_finishes_first(serve_shutdown):
