@@ -5,8 +5,9 @@
 
 Serving: each seed runs the cell as `run.py` does and reads, beside the
 program's widest logit gap, the control's: the same positions under the
-reference in fp8 (`reference/decoder.py`), the gap of the token that
-the fp8 reference puts first.
+configuration's plain reference (`reference/<name>.py`, named by its
+architecture) in fp8, the gap of the token that the fp8 reference puts
+first.
 
 Training: each seed builds the training object and drives its first
 steps as `run.py`'s set-up does (no window: its readings need none),
@@ -73,7 +74,7 @@ def control(reg, cell: dict, seeds, seconds: float, device) -> None:
             rec = reg.driver(kind).run(cell, seed, seconds, False,
                                        device, time.perf_counter(),
                                        control=True)
-            low = core.check(rec["sample"]["control_logit_gap"],
+            low = core.check(rec["sample"].get("control_logit_gap"),
                              cell["limits"]["logit_gap"])
             for what, checks in (("program", rec["checks"]),
                                  ("control_fp8", {"logit_gap": low})):

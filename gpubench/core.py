@@ -6,7 +6,13 @@ and never edits these:
 - `BENCHMARK.json` at the checkout's root lists the cells and metrics;
 - `configs/<config>.json`: the model as it is run (published keys at the
   top level, `reduced`, `assumed`, the deployment, the engine or
-  optimizer settings);
+  optimizer settings), and under `architecture` the name of its
+  architecture (`mistral` where the key is absent);
+- `arch/<architecture>.py`: what the architecture shapes: `dims` (the
+  sizes, from the published keys), `leaf_specs` (the weight layout),
+  `program_config` (the port's config object) and `reference`, the name
+  of its plain reference `reference/<reference>.py` (`sizes`, `logits`,
+  `loss`, `no_tf32`, `mm`, `AdamW`);
 - `traffic/<traffic>.json`: a traffic mix, the parameters that its
   driver (`drivers/<driver>.py`) reads;
 - `workloads/<cell>.json`: what belongs to one cell alone (an arrival
@@ -16,6 +22,7 @@ and never edits these:
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import math
@@ -28,6 +35,8 @@ ROOT = HERE.parent
 
 # top-level module names that no process of the benchmark may load
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "ray_tpu")
+# the architecture of a config file that names none
+DEFAULT_ARCH = "mistral"
 
 
 def load_json(path: Path) -> Any:
@@ -59,9 +68,12 @@ class Registry:
                 "limits": dict(extra.get("limits", {}))}
 
     def config(self, name: str) -> dict:
+        """A config file, its architecture module loaded from `base`."""
         for c in self.manifest["configs"]:
             if c["name"] == name:
-                return load_json(self.base.parent / c["file"])
+                conf = load_json(self.base.parent / c["file"])
+                arch_named(arch_name(conf), self.base)
+                return conf
         raise KeyError(f"no config {name!r} in BENCHMARK.json")
 
     def metrics_for(self, cell: str, per_layer: bool) -> List[dict]:
@@ -120,45 +132,43 @@ def seed_of(seed: int) -> int:
     return int(seed) % (1 << 63)
 
 
+def arch_name(config: dict) -> str:
+    return config.get("architecture", DEFAULT_ARCH)
+
+
+def arch_named(name: str, base: Path = HERE):
+    """`arch/<name>.py` under `base`; once loaded, by its name alone (a
+    registry over another folder loads its own first)."""
+    return load_module(Path(base) / "arch" / f"{name}.py",
+                       f"gpubench_arch_{name}")
+
+
+def arch(config: dict):
+    """The architecture module that a config file names."""
+    return arch_named(arch_name(config))
+
+
+def reference(config: dict):
+    """The plain reference of a config file's architecture."""
+    return importlib.import_module(
+        f"gpubench.reference.{arch(config).reference}")
+
+
 def dims(config: dict):
-    """The sizes of a config file under the port's names, read without
-    the program (the weights and the reference take these)."""
-    from types import SimpleNamespace
-    d, heads = config["hidden_size"], config["num_attention_heads"]
-    return SimpleNamespace(
-        vocab_size=config["vocab_size"], d_model=d,
-        n_layers=config["num_hidden_layers"], n_heads=heads,
-        kv_heads=config["num_key_value_heads"],
-        head_dim=config.get("head_dim") or d // heads,
-        d_ff=config["intermediate_size"],
-        max_seq_len=config["max_position_embeddings"],
-        moe_num_experts=int(config.get("num_local_experts") or 0),
-        moe_top_k=int(config.get("num_experts_per_tok") or 0),
-        tie_embeddings=bool(config["tie_word_embeddings"]))
+    """The sizes of a config file (`arch.dims`), read without the
+    program, tagged with the architecture's name (the weights and the
+    counts take these)."""
+    d = arch(config).dims(config)
+    d.architecture = arch_name(config)
+    return d
 
 
 def model_config(config: dict):
-    """The port's TransformerConfig for a config file: the published keys
-    mapped to the port's names, then the settings under `run`."""
-    from ray_tpu_torch.models.config import TransformerConfig
-    kw = dict(
-        vocab_size=config["vocab_size"], d_model=config["hidden_size"],
-        n_layers=config["num_hidden_layers"],
-        n_heads=config["num_attention_heads"],
-        n_kv_heads=config["num_key_value_heads"],
-        d_ff=config["intermediate_size"],
-        max_seq_len=config["max_position_embeddings"],
-        rope_theta=float(config["rope_theta"]),
-        norm_eps=float(config["rms_norm_eps"]),
-        tie_embeddings=bool(config["tie_word_embeddings"]))
-    if config.get("num_local_experts"):
-        kw.update(moe_num_experts=config["num_local_experts"],
-                  moe_top_k=config["num_experts_per_tok"],
-                  moe_aux_coef=float(config["router_aux_loss_coef"]))
-    kw.update(config.get("run", {}))
-    cfg = TransformerConfig(**kw)
+    """The port's config object for a config file
+    (`arch.program_config`)."""
+    cfg = arch(config).program_config(config)
     if cfg.head_dim != dims(config).head_dim:
-        raise ValueError("head_dim is not hidden_size / heads")
+        raise ValueError("the program's head_dim is not the config's")
     return cfg
 
 
@@ -171,8 +181,11 @@ def device_record(dev, count: int, peak_bytes: int) -> dict:
             "memory_peak_bytes": int(peak_bytes)}
 
 
-def check(value: float, limit: float) -> dict:
+def check(value: float, limit: float, why: str = "") -> dict:
     """One compared number beside its limit; a number that is missing or
-    not finite fails."""
+    not finite fails (`why` says why it is missing)."""
     ok = value is not None and math.isfinite(value) and value <= limit
-    return {"value": value, "limit": limit, "ok": bool(ok)}
+    out = {"value": value, "limit": limit, "ok": bool(ok)}
+    if why:
+        out["why"] = why
+    return out

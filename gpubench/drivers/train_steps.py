@@ -87,8 +87,9 @@ def start(cell, seed: int, device):
                 opt, paths, leaves, seed)
     prog["update_norms"] = judge.change_norms(
         dims, seed, device, dict(zip(paths, leaves)))
-    return SimpleNamespace(cfg=cfg, params=params, model=model, opt=opt,
-                           feed=feed, first=first, prog=prog, loss=loss)
+    return SimpleNamespace(cfg=cfg, dims=dims, params=params, model=model,
+                           opt=opt, feed=feed, first=first, prog=prog,
+                           loss=loss)
 
 
 def run(cell, seed, seconds, trace, device, t_start, control=False):
@@ -97,8 +98,9 @@ def run(cell, seed, seconds, trace, device, t_start, control=False):
     p = cell["params"]
     phases = {"imports": time.perf_counter() - t_start}
     st = start(cell, seed, device)
-    cfg, params, model, opt, feed, first, prog = (
-        st.cfg, st.params, st.model, st.opt, st.feed, st.first, st.prog)
+    cfg, dims, params, model, opt, feed, first, prog = (
+        st.cfg, st.dims, st.params, st.model, st.opt, st.feed, st.first,
+        st.prog)
     loss = batch = st.loss
     del st
     phases["first_steps"] = time.perf_counter() - t_start
@@ -157,7 +159,7 @@ def run(cell, seed, seconds, trace, device, t_start, control=False):
                                            device)
     checks["window_losses_finite"] = core.check(
         0.0 if finite else 1.0, cell["limits"]["window_losses_finite"])
-    m = counts.sizes(cfg)
+    m = counts.sizes(dims)
     before_s = (t_split - t0) if t_split is not None else (t1 - t0)
     phases["readings"] = setup_s
     return {

@@ -8,8 +8,11 @@ The reference runs once over each prompt with its served tokens, and
 the number compared is the widest gap by which a served token's logit
 lies below the reference's best at its position (0 where the program
 chose the reference's argmax). With `control`, the same positions are
-read under the reference in fp8 (`decoder.mm`): the gap of the token
-that the fp8 reference puts first.
+read under the reference in fp8 (its `mm` with `quant="fp8"`): the gap
+of the token that the fp8 reference puts first.
+
+The reference is the configuration's own (`core.reference`: the module
+under `reference/` that its architecture names).
 
 Training: see `training`.
 
@@ -24,7 +27,6 @@ from typing import Dict, List, Optional
 import torch
 
 from gpubench import core, load, weights
-from gpubench.reference import decoder
 
 
 def sample(served: list, seed: int, want_tokens: int) -> list:
@@ -52,8 +54,9 @@ def serving(cell: dict, seed: int, served: list, device,
     limits = cell["limits"]
     picked = sample(served, seed, sample_tokens)
     conf = cell["config"]
-    rcfg = decoder.sizes(conf)
-    decoder.no_tf32()
+    ref_mod = core.reference(conf)
+    rcfg = ref_mod.sizes(conf)
+    ref_mod.no_tf32()
     params = weights.make_params(core.dims(conf), seed, device,
                                  served_dtype(conf), stacked=True)
     gap, ctrl = 0.0, 0.0
@@ -61,13 +64,14 @@ def serving(cell: dict, seed: int, served: list, device,
     for r in picked:
         toks = torch.tensor(r.prompt + r.toks[:-1], device=device)
         pos = slice(len(r.prompt) - 1, len(r.prompt) - 1 + len(r.toks))
-        ref = decoder.logits(params, toks, rcfg, rows=pos)
+        ref = ref_mod.logits(params, toks, rcfg, rows=pos)
         got = torch.tensor(r.toks, device=device)
         best = ref.max(dim=-1).values
         gap = max(gap, float((best - ref.gather(1, got[:, None])[:, 0])
                              .max()))
         if control:
-            low = decoder.logits(params, toks, rcfg, quant="fp8", rows=pos)
+            low = ref_mod.logits(params, toks, rcfg, quant="fp8",
+                                 rows=pos)
             pick = low.argmax(dim=-1)
             ctrl = max(ctrl, float((best - ref.gather(1, pick[:, None])
                                     [:, 0]).max()))
@@ -201,22 +205,23 @@ def reference_training(cell: dict, seed: int, batches: List[torch.Tensor],
     rows of each batch (a fault: part of the batch left out, the mean
     taken over the rest)."""
     conf = cell["config"]
-    cfg = core.dims(conf)
-    rcfg = decoder.sizes(conf)
+    dims = core.dims(conf)
+    ref_mod = core.reference(conf)
+    rcfg = ref_mod.sizes(conf)
     opt_conf = conf["optimizer"]
-    decoder.no_tf32()
-    params = weights.make_params(cfg, seed, device, torch.float32,
+    ref_mod.no_tf32()
+    params = weights.make_params(dims, seed, device, torch.float32,
                                  stacked=False)
-    paths = weights.paths(cfg)
+    paths = weights.paths(dims)
     leaves = [weights.get_leaf(params, p) for p in paths]
     for t in leaves:
         t.requires_grad_(True)
-    opt = decoder.AdamW(leaves, lr=opt_conf["lr"],
+    opt = ref_mod.AdamW(leaves, lr=opt_conf["lr"],
                         betas=tuple(opt_conf["betas"]), eps=opt_conf["eps"],
                         weight_decay=opt_conf["weight_decay"])
     losses, grad_norms = [], {}
     for i, batch in enumerate(batches):
-        loss = decoder.loss(params, batch[:rows], rcfg, quant=quant)
+        loss = ref_mod.loss(params, batch[:rows], rcfg, quant=quant)
         grads = torch.autograd.grad(loss, leaves)
         losses.append(float(loss.detach()))
         if i == 0:
@@ -225,7 +230,7 @@ def reference_training(cell: dict, seed: int, batches: List[torch.Tensor],
         opt.step(grads)
         del grads, loss
     del opt
-    update_norms = change_norms(cfg, seed, device,
+    update_norms = change_norms(dims, seed, device,
                                 {p: t.detach() for p, t in
                                  zip(paths, leaves)})
     del params, leaves
@@ -237,12 +242,12 @@ def reference_training(cell: dict, seed: int, batches: List[torch.Tensor],
 
 
 @torch.no_grad()
-def change_norms(cfg, seed: int, device, now: Dict[tuple, torch.Tensor]
+def change_norms(dims, seed: int, device, now: Dict[tuple, torch.Tensor]
                  ) -> Dict[tuple, float]:
     """||leaf now - leaf at the start|| a leaf; the start made again from
-    the seed, one leaf at a time."""
+    the seed (`core.dims` of the config), one leaf at a time."""
     out = {}
-    for path, start in weights.iter_leaves(cfg, seed, device,
+    for path, start in weights.iter_leaves(dims, seed, device,
                                            torch.float32, stacked=False):
         out[path] = float((now[path].to(torch.float32) - start).norm())
         del start

@@ -28,13 +28,15 @@ def idle_share(rec: dict) -> Optional[float]:
 def decode_roofline(rec: dict) -> Optional[float]:
     """The decode steps' least time (weights and each row's own K/V at
     HBM bandwidth, or their FLOPs at peak, whichever binds) over their
-    device time inside the decode spans."""
+    device time inside the decode spans. A span's fields after its rows
+    and contexts are its rows' sums of min(context, W), one for each
+    window W of a windowed model."""
     t = rec.get("trace")
     if not t:
         return None
     least = busy = 0.0
-    for (rows, ctx), sec in per_span(t, "model.decode"):
-        c = counts.decode_step_counts(rec["model"], rows, ctx)
+    for (rows, ctx, *reach), sec in per_span(t, "model.decode"):
+        c = counts.decode_step_counts(rec["model"], rows, ctx, reach)
         least += counts.least_s(c["flops"], c["bytes"])
         busy += sec
     return share(least, busy)

@@ -114,8 +114,9 @@ def main(argv=None) -> int:
                                       "sample": rec.get("sample")}),
               file=sys.stderr)
     for k, c in out["checks"].items():
-        print(f"check {k}: {c['value']!r} (limit {c['limit']!r})",
-              file=sys.stderr)
+        why = rec["checks"][k].get("why")
+        print(f"check {k}: {c['value']!r} (limit {c['limit']!r})"
+              + (f": {why}" if why else ""), file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(out), flush=True)
     return 0

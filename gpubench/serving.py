@@ -16,7 +16,7 @@ import gc
 import queue
 import threading
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -49,9 +49,11 @@ class Session:
         serving = conf["serving"]
         self.cell, self.seed, self.device = cell, seed, device
         self.cfg = core.model_config(conf)
+        dims = core.dims(conf)
+        self.model = counts.sizes(dims)
         self.dtype = self.cfg.activation_dtype
-        params = weights.make_params(core.dims(conf), seed, device,
-                                     self.dtype, stacked=True)
+        params = weights.make_params(dims, seed, device, self.dtype,
+                                     stacked=True)
         self.num_pages = pool_pages(self.cfg, params, serving, device)
         self.engine = LLMEngine(model=self.cfg, weights=params,
                                 device=device, num_pages=self.num_pages,
@@ -208,11 +210,13 @@ class Client:
 
 
 # --------------------------------------------------------- spans (trace 1)
-def install_spans(core_) -> Callable[[], None]:
+def install_spans(core_, windows: Sequence[int] = ()
+                  ) -> Callable[[], None]:
     """`record_function` ranges around the engine's step and its two
     calls into the model, named with what the counts need: the prompt's
-    true length, and a decode step's active rows and their contexts.
-    Returns the undo."""
+    true length, and a decode step's active rows and their contexts
+    (`model.decode:<rows>:<contexts>`), then for each of `windows`
+    (ascending) the rows' sum of min(context, W). Returns the undo."""
     from torch.profiler import record_function
     step, prefill, decode = core_.step, core_._prefill, core_._decode
 
@@ -225,9 +229,10 @@ def install_spans(core_) -> Callable[[], None]:
             return prefill(seq, toks)
 
     def span_decode(tokens, positions, pts, active):
-        rows = int(active.sum())
-        ctx = int((positions[active].astype(np.int64) + 1).sum())
-        with record_function(f"model.decode:{rows}:{ctx}"):
+        ctx = positions[active].astype(np.int64) + 1
+        fields = [int(active.sum()), int(ctx.sum())] + [
+            int(np.minimum(ctx, w).sum()) for w in windows]
+        with record_function("model.decode:" + ":".join(map(str, fields))):
             return decode(tokens, positions, pts, active)
 
     core_.step, core_._prefill, core_._decode = (span_step, span_prefill,
@@ -256,7 +261,8 @@ def run_window(session: Session, schedule, seconds: float, trace: bool,
     halt = threading.Event()
     prof = Profile() if trace else None
     prof_at = (seconds - slice_s(seconds), seconds)
-    undo = install_spans(ecore) if trace else None
+    undo = (install_spans(ecore, counts.windows_of(session.model))
+            if trace else None)
     client = Client(eng)
 
     # every user has a thread of its own, so a `generate` that waits for
@@ -386,6 +392,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
     """Set up, warm, run the window, check; the record for the readers."""
     seed = core.seed_of(seed)
     phases = {"imports": time.perf_counter() - t_start}
+    before = allocated(device)
     session = Session(cell, seed, device)
     phases["weights_and_engine"] = time.perf_counter() - t_start
     schedule, prompt_lens = schedule_fn(session.cfg, cell["params"], seed,
@@ -402,7 +409,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
                      wait_first_s=float(p.get("wait_first_s", 60.0)))
     rec["setup_s"], rec["setup_phases_s"] = setup_s, phases
     rec.update(summarize(rec))
-    rec["model"] = counts.sizes(session.cfg)
+    rec["model"] = session.model
     served = [r for r in rec["requests"] if r.toks and not r.failed]
     gc.unfreeze()
     peak = session.close()
@@ -432,8 +439,29 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
                     "ttft_p50_p75_p90_p95_max_s": [
                         core.percentile(rec["ttft_s"], q)
                         for q in (50, 75, 90, 95, 100)]}
+    # the judge's room: what the session leaves allocated, the judge
+    # lacks (its weights and the reference's activations)
+    held = allocated(device) - before
+    rec["notes"]["held_after_close_bytes"] = held
+    if held > 0:
+        rec["checks"] = {"logit_gap": core.check(
+            None, cell["limits"]["logit_gap"],
+            why=f"{held} bytes of the engine still allocated on the card "
+                f"after its close; the judge did not run")}
+        rec["sample"] = {}
+        return rec
     rec["checks"], rec["sample"] = judge.serving(
         cell, seed, served, device,
         sample_tokens=int(p.get("sample_tokens", 400)), control=control)
     return rec
+
+
+def allocated(device) -> int:
+    """Bytes allocated to tensors on the card (0 off it), once cuBLAS has
+    let go of its workspaces: it keeps one for each stream it ran on,
+    which no session owns and the next product makes again."""
+    if device.type != "cuda":
+        return 0
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated(device)
 

@@ -43,3 +43,61 @@ def test_reads_the_paged_kernels_inside_decode_spans():
 def test_nothing_to_read_without_the_kernel():
     assert reader()(rec([("gemm", 0.3, 5e-6, "model.decode:3:30")])) is None
     assert reader()({"model": M, "trace": None}) is None
+
+
+class FakeCore:
+    """The three engine calls `install_spans` wraps."""
+
+    def step(self):
+        return None
+
+    def _prefill(self, seq, toks):
+        return None
+
+    def _decode(self, tokens, positions, pts, active):
+        return None
+
+
+def decode_span(monkeypatch, windows):
+    import numpy as np
+    import torch.profiler
+    from gpubench import serving
+    names = []
+
+    class Named:
+        def __init__(self, name):
+            names.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+    monkeypatch.setattr(torch.profiler, "record_function", Named)
+    core_ = FakeCore()
+    undo = serving.install_spans(core_, windows)
+    core_._decode(None, np.array([5, 2000, 900, 0], dtype=np.int32), None,
+                  np.array([True, True, True, False]))
+    undo()
+    return names[0]
+
+
+def test_the_decode_span_carries_each_windows_reach(monkeypatch):
+    """Rows at positions 5, 2,000 and 900 (a fourth inactive): contexts
+    6 + 2,001 + 901; within 1,024: 6 + 1,024 + 901; within 4,096: all."""
+    assert decode_span(monkeypatch, ()) == "model.decode:3:2908"
+    assert decode_span(monkeypatch, (1024, 4096)) == \
+        "model.decode:3:2908:1931:2908"
+
+
+def test_mfu_decode_reads_the_windows_reach():
+    from gpubench import counts
+    m = dict(M, d=8, f=16, vocab=10, experts=0, top_k=0, layers=4,
+             windows=[4, 4, 4, 0], ffn=["dense"] * 4)
+    spans = [("model.decode:2:16:8", 0.0, 1.0)]
+    r = {"model": m, "trace": {"spans": spans, "window_s": 10.0,
+                               "busy_s": 0.0,
+                               "kernels": [("gemm", 0.1, 1e-3, 0)]}}
+    c = counts.decode_step_counts(m, 2, 16, [8])
+    assert core.Registry().reader("mfu.decode")(r) == pytest.approx(
+        100 * counts.least_s(c["flops"], c["bytes"]) / 1e-3)

@@ -147,3 +147,17 @@ def test_the_training_control_reads_three_times_the_program(seed):
     checks = judge.training_checks(low, cell["limits"])
     assert not all(c["ok"] for c in checks.values()), checks
     assert decoder.E4M3_MAX == 448.0
+
+
+def test_the_judge_runs_only_in_its_room(monkeypatch):
+    """Memory of the engine still allocated after its close fails the
+    serving check, with the bytes held named, and the judge does not
+    run."""
+    from gpubench import serving
+    readings = iter([1024, 1024 + 4096])
+    monkeypatch.setattr(serving, "allocated", lambda device: next(readings))
+    monkeypatch.setattr(judge, "serving", None)
+    rec, out = run_tiny(f32(tiny_cell("mistral-7b.chat")), seconds=1.0)
+    assert not out["correct"]
+    assert out["checks"]["logit_gap"]["value"] is None
+    assert "4096 bytes" in rec["checks"]["logit_gap"]["why"]

@@ -1,10 +1,11 @@
 """The weights of a run, made from its seed on the device.
 
 Both sides get the same bits: the program receives the tree that
-`make_params` builds, and the reference makes it again after the window
-from the same seed (`iter_leaves` in the same order), so it reads
-nothing that the program made. The tree has the layout the port's
-`Transformer` takes: `embed`, `layers` (a list of per-layer dicts),
+`make_params` builds from a config file's `core.dims`, and the reference
+makes it again after the window from the same seed (`iter_leaves` in the
+same order), so it reads nothing that the program made. The tree has
+the layout the port's `Transformer` takes: `embed`, `layers` (a list of
+per-layer dicts, laid out by the architecture's `leaf_specs`),
 `final_norm`, `lm_head`.
 
 Scales (standard deviations) are chosen so that every part shows in the
@@ -23,30 +24,15 @@ from typing import Dict, Iterator, List, Tuple
 
 import torch
 
+from gpubench import core
+
 QK_GAIN = 1.6
 
 
-def leaf_specs(cfg) -> List[Tuple[str, tuple, float]]:
-    """(name, shape of one layer's leaf, std) of every per-layer leaf."""
-    e, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
-    qd, kvd = cfg.n_heads * hd, cfg.kv_heads * hd
-    specs = [("attn_norm", (e,), 0.1),
-             ("wq", (e, qd), QK_GAIN / math.sqrt(e)),
-             ("wk", (e, kvd), QK_GAIN / math.sqrt(e)),
-             ("wv", (e, kvd), 1 / math.sqrt(e)),
-             ("wo", (qd, e), 1 / math.sqrt(qd)),
-             ("mlp_norm", (e,), 0.1)]
-    E = cfg.moe_num_experts
-    if E:
-        specs += [("router", (e, E), 1 / math.sqrt(e)),
-                  ("moe_gate", (E, e, f), 1 / math.sqrt(e)),
-                  ("moe_up", (E, e, f), 1 / math.sqrt(e)),
-                  ("moe_down", (E, f, e), 1 / math.sqrt(f))]
-    else:
-        specs += [("gate", (e, f), 1 / math.sqrt(e)),
-                  ("up", (e, f), 1 / math.sqrt(e)),
-                  ("down", (f, e), 1 / math.sqrt(f))]
-    return specs
+def leaf_specs(dims) -> List[Tuple[str, tuple, float]]:
+    """(name, shape of one layer's leaf, std) of every per-layer leaf, as
+    the architecture lays them out (`arch.leaf_specs`)."""
+    return core.arch_named(dims.architecture).leaf_specs(dims)
 
 
 def _normal(gen, shape, std, dtype, device) -> torch.Tensor:
@@ -55,7 +41,7 @@ def _normal(gen, shape, std, dtype, device) -> torch.Tensor:
     return x
 
 
-def iter_leaves(cfg, seed: int, device, dtype: torch.dtype,
+def iter_leaves(dims, seed: int, device, dtype: torch.dtype,
                 stacked: bool) -> Iterator[Tuple[tuple, torch.Tensor]]:
     """(path, tensor) of every leaf, in the one order both sides use.
     `stacked`: each per-layer leaf is made for all layers in one call
@@ -63,29 +49,29 @@ def iter_leaves(cfg, seed: int, device, dtype: torch.dtype,
     is a leaf of its own for the optimizer."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (1 << 63))
-    yield ("embed",), _normal(gen, (cfg.vocab_size, cfg.d_model), 1.0,
+    yield ("embed",), _normal(gen, (dims.vocab_size, dims.d_model), 1.0,
                               dtype, device)
-    for name, shape, std in leaf_specs(cfg):
+    for name, shape, std in leaf_specs(dims):
         if stacked:
-            slab = _normal(gen, (cfg.n_layers, *shape), std, dtype, device)
-            for i in range(cfg.n_layers):
+            slab = _normal(gen, (dims.n_layers, *shape), std, dtype, device)
+            for i in range(dims.n_layers):
                 yield ("layers", i, name), slab[i]
         else:
-            for i in range(cfg.n_layers):
+            for i in range(dims.n_layers):
                 yield ("layers", i, name), _normal(gen, shape, std, dtype,
                                                    device)
-    yield ("final_norm",), _normal(gen, (cfg.d_model,), 0.1, dtype, device)
-    yield ("lm_head",), _normal(gen, (cfg.d_model, cfg.vocab_size),
-                                1 / math.sqrt(cfg.d_model), dtype, device)
+    yield ("final_norm",), _normal(gen, (dims.d_model,), 0.1, dtype, device)
+    yield ("lm_head",), _normal(gen, (dims.d_model, dims.vocab_size),
+                                1 / math.sqrt(dims.d_model), dtype, device)
 
 
-def make_params(cfg, seed: int, device, dtype: torch.dtype,
+def make_params(dims, seed: int, device, dtype: torch.dtype,
                 stacked: bool) -> Dict:
     """The whole tree, in `dtype`, on `device`."""
-    if cfg.tie_embeddings:
+    if dims.tie_embeddings:
         raise ValueError("the benchmark's configurations untie the head")
-    tree = {"layers": [{} for _ in range(cfg.n_layers)]}
-    for path, t in iter_leaves(cfg, seed, device, dtype, stacked):
+    tree = {"layers": [{} for _ in range(dims.n_layers)]}
+    for path, t in iter_leaves(dims, seed, device, dtype, stacked):
         if path[0] == "layers":
             tree["layers"][path[1]][path[2]] = t
         else:
@@ -100,9 +86,9 @@ def get_leaf(tree: Dict, path: tuple) -> torch.Tensor:
     return node
 
 
-def paths(cfg) -> List[tuple]:
+def paths(dims) -> List[tuple]:
     """Every leaf's path, in `iter_leaves` order (made without tensors)."""
     out = [("embed",)]
-    for name, _shape, _std in leaf_specs(cfg):
-        out += [("layers", i, name) for i in range(cfg.n_layers)]
+    for name, _shape, _std in leaf_specs(dims):
+        out += [("layers", i, name) for i in range(dims.n_layers)]
     return out + [("final_norm",), ("lm_head",)]
